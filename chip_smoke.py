@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py           # the whole check (one card)
     python3 chip_smoke.py --quick   # build + kernel checks at small shapes only
+    python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -15,14 +16,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    K1 (fused SDF) at the sampler's per-launch shape and at 1024 x 640
    points, in bf16 and f32; K2-fwd (every output and the stash) and K2-bwd
    (dx, dd, all 38 parameter gradients) at 4096 points in f32 and bf16 and
-   at the main path's 100,352 points in bf16;
+   at the main path's 100,352 points in bf16; K3-fwd and K3-bwd (the
+   recompute pair) at the same sizes, against field_math and its autograd
+   and against the K2 pair; K4 (the sampler round) at 1024 rays x 128 and
+   x 640 samples taken from a sampler run of the bench model, refine both
+   ways;
 4. five full-width bf16 training steps of abc-neat-a (bench_step: 8 x 256
    SDF, 4 x 256 heads, 1024 rays x 98 samples, the 512^2 x 4-view bench
    scene) with every kernel launch counter set to 0 just before and read
-   just after; each loss must be finite and each kernel must have launched
-   on every step;
-5. one step of the kernel path against the plain PyTorch path from the same
-   weights, batch and noise.
+   just after; each loss must be finite and each step must launch exactly
+   the kernels of its path (K1 x5, K2-fwd, K2-bwd);
+5. three steps each of the two further configurations of the same entry
+   point, counted the same way: bench_config(field='recompute') (K1 x5,
+   K3-fwd, K3-bwd) and bench_config(fused_rounds='on') (K4 x5, K1 x5,
+   K2-fwd, K2-bwd); and one no-grad neat_forward(training=False) on 1024
+   rays (K3-fwd, no K2);
+6. one step of each of the three kernel paths against the plain PyTorch path
+   from the same weights, batch and noise, and the sampler's z values with
+   and without K4 on the same noise.
 
 It prints ms/step and rays/s, the card line and one ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``. Details go to
@@ -54,6 +65,25 @@ PEAK_BYTES = 3.35e12
 # lands on the other side of a bf16 rounding step (one bf16 ulp is 2^-8
 # relative)
 TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+# K3 against field_math: the forward on the scale above, f32 held tighter
+K3_FWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# K3-bwd against autograd of field_math, as ||kernel - plain|| / ||plain|| of
+# each output and each of the 38 gradients. The backward re-runs the forward,
+# and a relu whose pre-activation an f32 sum in another order moves across 0
+# changes that point's whole backward: the plain version differs from itself
+# by as much when its products are summed in two halves (printed beside it as
+# "self"), so no entrywise limit can hold. What is exact is K3-bwd against
+# K2-fwd + K2-bwd on the same inputs (one tile body): held to 1e-6.
+K3_BWD_L2 = {"float32": 5e-3, "bfloat16": 0.15}
+K3_VS_K2 = 1e-6
+# K4 against fused_round_plain: rays whose beta differs by more than this
+# (one err <= eps decision of the bisection flipped) are counted and bounded;
+# on every other ray weights and pdf agree within the rtol / atol below
+K4_BETA_RTOL, K4_RTOL, K4_ATOL, K4_MAX_FLIPPED = 2e-4, 2e-4, 2e-5, 0.005
+# the bf16 eval forward, kernel path against plain path, on the scale above
+EVAL_TOL = 3e-2
+# sampler z values with K4 against without, on the same noise
+Z_MEDIAN, Z_MEAN = 1e-4, 0.02
 # end to end: one bf16 step, kernel path against plain path
 STEP_RTOL = 0.05
 
@@ -110,7 +140,7 @@ def k1_macs_per_point() -> int:
 
 
 def k2_macs_per_point():
-    from neat_tpu_torch.ops.fused_field_stash import CANONICAL_SHAPES
+    from neat_tpu_torch.ops.fused_field import CANONICAL_SHAPES
 
     imp = sum(i * o for i, o in CANONICAL_SHAPES[:9])
     heads = sum(i * o for i, o in CANONICAL_SHAPES[9:])
@@ -206,7 +236,7 @@ def check_k2(model, cfg, n, dtype, gen, reps, library=False):
         attraction_forward, implicit_sdf_feat_grad, render_forward,
     )
     from neat_tpu_torch.ops import fused_field_stash as K
-    from neat_tpu_torch.ops.fused_field import _flatten_eff
+    from neat_tpu_torch.ops.fused_field import CANONICAL_SHAPES, _flatten_eff, _n_param_grads
 
     cd = getattr(torch, dtype)
     icfg, rcfg = cfg.implicit, cfg.rendering
@@ -281,10 +311,10 @@ def check_k2(model, cfg, n, dtype, gen, reps, library=False):
             del outs
         fwd_macs, bwd_macs = k2_macs_per_point()
         cdb = 2 if dtype == "bfloat16" else 4
-        wb = weight_bytes(K.CANONICAL_SHAPES, cdb)
+        wb = weight_bytes(CANONICAL_SHAPES, cdb)
         stash = K.W_CD * cdb + K.W_F32 * 4
         fwd_bytes = n * (24 + 52 + stash) + 2 * wb
-        bwd_bytes = n * (24 + 24 + stash + 52 + 24) + 2 * wb + 4 * K._n_param_grads()
+        bwd_bytes = n * (24 + 24 + stash + 52 + 24) + 2 * wb + 4 * _n_param_grads()
         rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound_ms(fwd_macs * n, fwd_bytes, dtype)
         rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound_ms(bwd_macs * n, bwd_bytes, dtype)
     tol = TOL[dtype]
@@ -294,33 +324,235 @@ def check_k2(model, cfg, n, dtype, gen, reps, library=False):
     return rec
 
 
+def l2_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm()) / max(1e-30, float(b.norm()))
+
+
+def _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd):
+    """The plain version of K3-bwd: field_math recorded, then autograd."""
+    import torch
+
+    from neat_tpu_torch.ops.fused_field import field_math
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in (*flat, x, d)]
+    with torch.enable_grad():
+        outs = field_math(leaves[:-2], leaves[-2], leaves[-1], icfg, rcfg, cd)
+        return torch.autograd.grad(outs, leaves, cots)
+
+
+def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
+    """K3-fwd against field_math, K3-bwd against its autograd and against
+    K2-fwd + K2-bwd. ``library`` = (forward ms, backward ms) of the unfused
+    PyTorch route at this size, as check_k2 timed it."""
+    import torch
+
+    from neat_tpu_torch.ops import fused_field as F
+    from neat_tpu_torch.ops import fused_field_stash as K
+
+    cd = getattr(torch, dtype)
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    x, d, cots = _field_inputs(n, gen)
+    names = ("sdf", "grads", "rgb", "att")
+    with torch.no_grad():
+        flat = tuple(t.detach().contiguous() for t in F._flatten_eff(model))
+        got = F.field_fwd_kernel(flat, x, d, icfg, cd)
+        ref = F.field_math(flat, x, d, icfg, rcfg, cd)
+        k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
+        bgot = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
+        bk2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
+        torch.cuda.synchronize()
+    fwd_err = {k: rel_err(a, b) for k, a, b in zip(names, got, ref)}
+    fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    fwd_vs_k2 = max(rel_err(a, b) for a, b in zip(got, k2[:4]))
+    kernel = (*bgot[0], bgot[1], bgot[2])
+    bwd_vs_k2 = max(rel_err(a, b) for a, b in zip(kernel, (*bk2[0], bk2[1], bk2[2])))
+    plain = _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd)
+    torch.cuda.synchronize()
+    bwd_l2 = {"dx": l2_err(kernel[-2], plain[-2]), "dd": l2_err(kernel[-1], plain[-1]),
+              "dparams": max(l2_err(a, b) for a, b in zip(kernel[:-2], plain[:-2]))}
+    bwd_max = {"dx": rel_err(kernel[-2], plain[-2]), "dd": rel_err(kernel[-1], plain[-1]),
+               "dparams": max(rel_err(a, b) for a, b in zip(kernel[:-2], plain[:-2]))}
+    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(kernel, plain))
+    # the points whose own dx or dd is off by more than 10x the forward's limit
+    off = sum(
+        (a - b).abs().amax(dim=-1) > 10 * K3_FWD_TOL[dtype] * b.abs().max()
+        for a, b in zip(kernel[-2:], plain[-2:])
+    )
+    finite = all(bool(torch.isfinite(t).all()) for t in (*got, *kernel))
+    rec = {"n": n, "dtype": dtype, "fwd_err": fwd_err, "fwd_max_abs_err": fwd_abs,
+           "fwd_vs_k2": fwd_vs_k2, "bwd_vs_k2": bwd_vs_k2, "bwd_l2": bwd_l2, "bwd_max": bwd_max,
+           "bwd_max_abs_err": bwd_abs, "bwd_points_off": int((off > 0).sum()), "finite": finite}
+    if self_noise:
+        # the plain version against itself with every product summed in two halves
+        def split_k(h, w, cd_, el):
+            a, b = h.to(cd_).to(el), w.to(cd_).to(el)
+            k = a.shape[-1] // 2
+            return a[..., k:] @ b[k:] + a[..., :k] @ b[:k]
+
+        whole = F._mm
+        F._mm = split_k
+        try:
+            halves = _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd)
+        finally:
+            F._mm = whole
+        rec["plain_self_l2"] = max(l2_err(a, b) for a, b in zip(halves, plain))
+        rec["plain_self_max"] = max(rel_err(a, b) for a, b in zip(halves, plain))
+    del plain
+    if reps:
+        with torch.no_grad():
+            rec["fwd_ms"] = time_ms(lambda: F.field_fwd_kernel(flat, x, d, icfg, cd), reps)
+            rec["fwd_plain_ms"] = time_ms(lambda: F.field_math(flat, x, d, icfg, rcfg, cd), reps)
+            rec["bwd_ms"] = time_ms(lambda: F.field_bwd_kernel(flat, x, d, cots, icfg, cd), reps)
+        rec["bwd_plain_ms"] = time_ms(lambda: _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd), reps)
+        if library is not None:
+            # K3-bwd is handed no residuals, so its route runs the forward too
+            rec["fwd_library_ms"], rec["bwd_library_ms"] = library[0], library[0] + library[1]
+        fwd_macs, bwd_macs = k2_macs_per_point()
+        cdb = 2 if dtype == "bfloat16" else 4
+        wb = weight_bytes(F.CANONICAL_SHAPES, cdb)
+        fwd_bytes = n * (24 + 52) + 2 * wb
+        bwd_bytes = n * (24 + 52 + 24) + 2 * wb + 4 * F._n_param_grads()
+        rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound_ms(fwd_macs * n, fwd_bytes, dtype)
+        rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound_ms((fwd_macs + bwd_macs) * n, bwd_bytes, dtype)
+    what = f"K3 {dtype} n={n}"
+    require(finite, f"{what}: non-finite output")
+    for k, v in fwd_err.items():
+        require(v <= K3_FWD_TOL[dtype], f"{what}: forward {k} err {v:.3g} > {K3_FWD_TOL[dtype]}")
+    require(fwd_vs_k2 <= K3_VS_K2, f"{what}: forward differs from K2-fwd by {fwd_vs_k2:.3g}")
+    require(bwd_vs_k2 <= K3_VS_K2, f"{what}: backward differs from K2-fwd + K2-bwd by {bwd_vs_k2:.3g}")
+    for k, v in bwd_l2.items():
+        require(v <= K3_BWD_L2[dtype], f"{what}: backward {k} L2 err {v:.3g} > {K3_BWD_L2[dtype]}")
+    return rec
+
+
+def sampler_rounds(model, cfg, n_rays, gen):
+    """The (z, sdf, beta, beta0) that each refinement round of the bench
+    model's sampler hands the round kernel, for rays of the bench camera."""
+    import torch
+
+    from neat_tpu_torch.core.camera import get_camera_params
+    from neat_tpu_torch.model.neat import _sample_z, draw_forward_noise
+    from neat_tpu_torch.ops import fused_round as R
+    from neat_tpu_torch.utils.benchscene import bench_scene
+
+    scene = bench_scene(cfg, device="cuda")
+    uv = torch.rand((n_rays, 2), generator=gen, device="cuda") * 512
+    dirs, loc = get_camera_params(uv[None], scene["pose"][:1], scene["intrinsics"][:1])
+    fused = dataclasses.replace(cfg, sampler=dataclasses.replace(cfg.sampler, fused_rounds="on"))
+    noise = draw_forward_noise(gen, n_rays, cfg, device="cuda")
+    seen, kernel = [], R.fused_round_kernel
+
+    def record(z, sdf, beta, beta0, *a):
+        seen.append((z.clone(), sdf.clone(), beta.clone(), beta0.clone()))
+        return kernel(z, sdf, beta, beta0, *a)
+
+    record.launches = 0  # the wrapper counts on its module-level name
+    R.fused_round_kernel = record
+    try:
+        _sample_z(dirs[0], loc.expand(n_rays, 3), model, fused, True, noise)
+    finally:
+        R.fused_round_kernel = kernel
+    return seen
+
+
+def check_k4(data, scfg, refine, reps):
+    """K4 against fused_round_plain on one round's inputs."""
+    import torch
+
+    from neat_tpu_torch.ops.fused_round import fused_round_kernel, fused_round_plain
+
+    z, sdf, beta, beta0 = data
+    args = (scfg.eps, scfg.beta_iters, scfg.add_tiny, refine)
+    with torch.no_grad():
+        bk, wk, pk = fused_round_kernel(z, sdf, beta, beta0, *args)
+        bp, wp, pp = fused_round_plain(z, sdf, beta, beta0[0], *args)
+        torch.cuda.synchronize()
+        flipped = (bk - bp).abs() > K4_BETA_RTOL * bp.abs()
+        keep = ~flipped
+        close = lambda a, b: torch.isclose(a, b, rtol=K4_RTOL, atol=K4_ATOL, equal_nan=True)
+        n_rays, lanes = z.shape
+        rec = {
+            "rays": n_rays, "samples": lanes, "refine": refine,
+            "flipped_rays": int(flipped.sum()),
+            "weights_ok": bool(close(wk[keep], wp[keep]).all()),
+            "pdf_ok": bool(close(pk[keep], pp[keep]).all()),
+            "pdf_last_zero": bool((pk[:, -1] == 0).all()),
+            "pdf_all_zero": bool((pk == 0).all()),
+            "nan_rows": int(torch.isnan(pk).any(dim=-1).sum()),
+            "max_abs_err": float(torch.maximum(
+                torch.nan_to_num((wk - wp)[keep]).abs().max(),
+                torch.nan_to_num((pk - pp)[keep]).abs().max())),
+        }
+        if reps:
+            rec["ms"] = time_ms(lambda: fused_round_kernel(z, sdf, beta, beta0, *args), reps)
+            rec["plain_ms"] = time_ms(lambda: fused_round_plain(z, sdf, beta, beta0[0], *args), reps)
+            # each evaluation of the bound: 4 exp and some 20 f32 operations a
+            # sample; beta0, beta_iters steps, then the weights and the pdf
+            ops = n_rays * lanes * (scfg.beta_iters + 2) * 24
+            nbytes = 4 * (4 * n_rays * lanes + 2 * n_rays)
+            ops_ms, bytes_ms = ops / PEAK_OPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
+            rec["bound_ms"], rec["bound_by"] = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    what = f"K4 S={lanes} refine={refine}"
+    require(rec["flipped_rays"] <= K4_MAX_FLIPPED * n_rays,
+            f"{what}: beta differs on {rec['flipped_rays']} of {n_rays} rays")
+    require(rec["weights_ok"] and rec["pdf_ok"], f"{what}: weights or pdf differ on a ray whose beta agrees")
+    require(rec["pdf_last_zero"], f"{what}: pdf's last column is not 0")
+    require(refine or rec["pdf_all_zero"], f"{what}: pdf is not all 0 without refine")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # the training step
 # ---------------------------------------------------------------------------
 
 
 def counters():
+    from neat_tpu_torch.ops.fused_field import field_bwd_kernel, field_fwd_kernel
     from neat_tpu_torch.ops.fused_field_stash import field_bwd_stash_kernel, field_fwd_stash_kernel
+    from neat_tpu_torch.ops.fused_round import fused_round_kernel
     from neat_tpu_torch.ops.fused_sdf import fused_sdf_kernel
 
     return {
         "fused_sdf": fused_sdf_kernel,
         "field_fwd_stash": field_fwd_stash_kernel,
         "field_bwd_stash": field_bwd_stash_kernel,
+        "field_fwd": field_fwd_kernel,
+        "field_bwd": field_bwd_kernel,
+        "fused_round": fused_round_kernel,
     }
 
 
-def train_steps(n_steps):
+# launches per step of each path through bench_config -> bench_step; a kernel
+# not named launches 0 times
+PATHS = {
+    "main": (dict(), dict(fused_sdf=5, field_fwd_stash=1, field_bwd_stash=1)),
+    "recompute": (dict(field="recompute"), dict(fused_sdf=5, field_fwd=1, field_bwd=1)),
+    "fused_rounds": (dict(fused_rounds="on"),
+                     dict(fused_round=5, fused_sdf=5, field_fwd_stash=1, field_bwd_stash=1)),
+}
+
+
+def path_config(path):
+    from neat_tpu_torch.utils.benchscene import bench_config
+
+    return bench_config("bfloat16", device="cuda", **PATHS[path][0])
+
+
+def train_steps(path, n_steps):
+    """n_steps full-width bf16 steps of one path, the launch counters set to 0
+    just before and read just after; every step must launch exactly the
+    path's kernels."""
     import torch
 
-    from neat_tpu_torch.utils.benchscene import BENCH_N_RAYS, bench_config, bench_scene, bench_step
+    from neat_tpu_torch.utils.benchscene import BENCH_N_RAYS, bench_scene, bench_step
 
-    cfg = bench_config("bfloat16", device="cuda")
-    require(cfg.use_pallas_sampler and cfg.use_pallas_field, "bench_config took no kernel path")
+    cfg = path_config(path)
+    fns = counters()
+    expected = {k: PATHS[path][1].get(k, 0) for k in fns}
     scene = bench_scene(cfg, device="cuda")
     step, state = bench_step(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    fns = counters()
     for f in fns.values():
         f.launches = 0
     times, losses, per_step = [], [], []
@@ -335,8 +567,8 @@ def train_steps(n_steps):
         losses.append(loss)
         grew = {k: f.launches - before[k] for k, f in fns.items()}
         per_step.append(grew)
-        require(math.isfinite(loss), f"non-finite loss {loss}")
-        require(all(v > 0 for v in grew.values()), f"a kernel did not launch in a step: {grew}")
+        require(math.isfinite(loss), f"{path}: non-finite loss {loss}")
+        require(grew == expected, f"{path}: a step launched {grew}, expected {expected}")
     launches = {k: f.launches for k, f in fns.items()}
     ms = statistics.median(times[1:]) if len(times) > 1 else times[0]
     return {
@@ -345,15 +577,51 @@ def train_steps(n_steps):
     }
 
 
-def profile_steps(n_steps: int, out_path: str):
-    """Device time by kernel over n_steps bf16 training steps (torch.profiler)
-    and the device's busy share of the wall time; the table goes to out_path."""
+def time_paths_in_turns(n_steps: int, block: int = 5):
+    """Step times of the three paths taken in turns on one card: blocks of
+    ``block`` steps, the order of the paths reversed after every round, until
+    each path has n_steps. Returns the median and quartiles per path."""
+    import torch
+
+    from neat_tpu_torch.utils.benchscene import bench_scene, bench_step
+
+    runs, times = {}, {path: [] for path in PATHS}
+    for path in PATHS:
+        cfg = path_config(path)
+        step, state = bench_step(cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        scene = bench_scene(cfg, device="cuda")
+        state, _ = step(state, scene, gen)  # warm-up
+        runs[path] = [step, state, scene, gen]
+    order = list(PATHS)
+    while len(times[order[0]]) < n_steps:
+        for path in order:
+            step, state, scene, gen = runs[path]
+            for _ in range(block):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, _ = step(state, scene, gen)
+                torch.cuda.synchronize()
+                times[path].append((time.perf_counter() - t0) * 1e3)
+            runs[path][1] = state
+        order.reverse()
+    out = {}
+    for path, ts in times.items():
+        q1, med, q3 = statistics.quantiles(ts, n=4)
+        out[path] = {"n": len(ts), "median_ms": med, "q1_ms": q1, "q3_ms": q3, "min_ms": min(ts)}
+    return out
+
+
+def profile_steps(path, n_steps: int, out_path: str):
+    """Device time by kernel over n_steps bf16 training steps of one path
+    (torch.profiler), the launches per step and the device's busy share of
+    the wall time; the table goes to out_path."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from neat_tpu_torch.utils.benchscene import bench_config, bench_scene, bench_step
+    from neat_tpu_torch.utils.benchscene import bench_scene, bench_step
 
-    cfg = bench_config("bfloat16", device="cuda")
+    cfg = path_config(path)
     scene = bench_scene(cfg, device="cuda")
     step, state = bench_step(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -374,41 +642,63 @@ def profile_steps(n_steps: int, out_path: str):
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
         if dev_us > 0:
-            rows.append((dev_us / 1e3 / n_steps, e.count // n_steps, e.key))
+            rows.append((dev_us / 1e3 / n_steps, e.count / n_steps, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    launches = sum(r[1] for r in rows)
     with open(out_path, "w") as f:
-        f.write(f"{n_steps} steps, wall {wall_ms / n_steps:.2f} ms/step, device busy "
-                f"{busy:.2f} ms/step\nms/step  launches/step  kernel\n")
+        f.write(f"{path}: {n_steps} steps, wall {wall_ms / n_steps:.2f} ms/step, device busy "
+                f"{busy:.2f} ms/step in {launches:.0f} launches/step\n"
+                "ms/step  launches/step  kernel\n")
         for ms, cnt, key in rows:
-            f.write(f"{ms:9.3f} {cnt:6d}  {key[:150]}\n")
+            f.write(f"{ms:9.3f} {cnt:8.1f}  {key[:150]}\n")
     return {"wall_ms_per_step": wall_ms / n_steps, "device_busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy / (wall_ms / n_steps), "top": rows[:12]}
+            "launches_per_step": launches, "idle_share": 1.0 - busy / (wall_ms / n_steps),
+            "top": rows[:12]}
 
 
 def compare_paths():
-    """One step of the kernel path and of the plain PyTorch path (same dtype)
-    from the same weights, batch and noise; and the plain step's time."""
+    """One step of each kernel path and of the plain PyTorch path (same
+    dtype) from the same weights, batch and noise; the sampler's z values with
+    and without K4 on that noise; and the plain step's time."""
     import torch
 
-    from neat_tpu_torch.model.neat import draw_forward_noise
+    from neat_tpu_torch.core.camera import get_camera_params
+    from neat_tpu_torch.model.neat import _sample_z, draw_forward_noise, init_neat
     from neat_tpu_torch.train.step import sample_batch
-    from neat_tpu_torch.utils.benchscene import (
-        BENCH_IMG_RES, BENCH_N_RAYS, bench_config, bench_scene, bench_step,
-    )
+    from neat_tpu_torch.utils.benchscene import BENCH_IMG_RES, BENCH_N_RAYS, bench_scene, bench_step
 
-    cfg_k = bench_config("bfloat16", device="cuda")
-    cfg_p = dataclasses.replace(cfg_k, use_pallas_sampler=False, use_pallas_field=False)
-    scene = bench_scene(cfg_k, device="cuda")
+    cfgs = {path: path_config(path) for path in PATHS}
+    cfgs["plain"] = dataclasses.replace(cfgs["main"], use_pallas_sampler=False, use_pallas_field=False)
+    scene = bench_scene(cfgs["main"], device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     batch = sample_batch(gen, scene, BENCH_N_RAYS, BENCH_IMG_RES[1])
-    noise = draw_forward_noise(gen, BENCH_N_RAYS, cfg_k, device="cuda")
+    noise = draw_forward_noise(gen, BENCH_N_RAYS, cfgs["main"], device="cuda")
     out = {}
-    for name, cfg in (("kernel", cfg_k), ("plain", cfg_p)):
+    for name, cfg in cfgs.items():
         step, state = bench_step(cfg, device="cuda")
         _, m = step(state, scene, batch=batch, noise=noise)
         out[name] = {k: float(v) for k, v in m.items()}
-    step, state = bench_step(cfg_p, device="cuda")
+    for name in PATHS:
+        for key in ("loss", "rgb_loss", "eikonal_loss"):
+            a, b = out[name][key], out["plain"][key]
+            require(
+                abs(a - b) <= STEP_RTOL * max(abs(b), 1e-6),
+                f"{name} path {key} {a:.6g} vs plain path {b:.6g}",
+            )
+    # the sampler alone, rounds on against rounds off, same rays and noise
+    model = init_neat(cfgs["main"], seed=0, device="cuda")
+    inputs = batch[0]
+    dirs, loc = get_camera_params(inputs["uv"][None], inputs["pose"][None], inputs["intrinsics"][None])
+    z = {
+        name: _sample_z(dirs[0], loc.expand(BENCH_N_RAYS, 3), model, cfgs[name], True, noise)[0]
+        for name in ("main", "fused_rounds")
+    }
+    diff = (z["fused_rounds"] - z["main"]).abs()
+    out["z_median_diff"], out["z_mean_diff"] = float(diff.median()), float(diff.mean())
+    require(out["z_median_diff"] < Z_MEDIAN and out["z_mean_diff"] < Z_MEAN,
+            f"z values with K4: median |diff| {out['z_median_diff']:.3g}, mean {out['z_mean_diff']:.3g}")
+    step, state = bench_step(cfgs["plain"], device="cuda")
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -417,13 +707,45 @@ def compare_paths():
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     out["plain_step_ms"] = times
-    for key in ("loss", "rgb_loss", "eikonal_loss"):
-        a, b = out["kernel"][key], out["plain"][key]
-        require(
-            abs(a - b) <= STEP_RTOL * max(abs(b), 1e-6),
-            f"kernel path {key} {a:.6g} vs plain path {b:.6g}",
-        )
     return out
+
+
+def eval_forward(n_rays):
+    """neat_forward(training=False) under no_grad on n_rays of the bench
+    scene: the kernel configuration (K1, and K3-fwd through the stash op's
+    no-grad dispatch) against the same configuration with the plain field
+    path (K1 stays, so both render the same sample points)."""
+    import torch
+
+    from neat_tpu_torch.model.neat import init_neat, neat_forward
+    from neat_tpu_torch.utils.benchscene import bench_scene
+
+    cfg_k = path_config("main")
+    cfg_p = dataclasses.replace(cfg_k, use_pallas_field=False)
+    scene = bench_scene(cfg_k, device="cuda")
+    model = init_neat(cfg_k, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    inputs = {
+        "uv": torch.rand((n_rays, 2), generator=gen, device="cuda") * 512,
+        "uv_proj": torch.rand((n_rays, 2), generator=gen, device="cuda") * 512,
+        "intrinsics": scene["intrinsics"][0], "pose": scene["pose"][0],
+    }
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    with torch.no_grad():
+        got = neat_forward(model, inputs, cfg_k, training=False)
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in fns.items()}
+        ref = neat_forward(model, inputs, cfg_p, training=False)
+    expected = dict.fromkeys(fns, 0) | dict(fused_sdf=cfg_k.sampler.max_total_iters, field_fwd=1)
+    require(launches == expected, f"eval forward launched {launches}, expected {expected}")
+    rec = {"launches": launches, "err": {}}
+    for key in ("rgb_values", "depth", "normal_map"):
+        require(bool(torch.isfinite(got[key]).all()), f"eval forward: non-finite {key}")
+        rec["err"][key] = rel_err(got[key], ref[key])
+        require(rec["err"][key] <= EVAL_TOL, f"eval forward {key} err {rec['err'][key]:.3g} > {EVAL_TOL}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +755,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="build + small kernel checks only")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 3 steps with torch.profiler (build/chip_smoke/profile.txt)")
+                    help="also trace 3 steps of each path with torch.profiler "
+                         "(build/chip_smoke/profile_<path>.txt)")
+    ap.add_argument("--turns", type=int, default=0, metavar="N",
+                    help="also time N steps of each path, the paths taken in turns")
     args = ap.parse_args()
 
     import torch
@@ -465,11 +790,17 @@ def main() -> int:
     cfg = bench_config("bfloat16", device="cuda")
     model = init_neat(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1, k2 = [], []
+    k1, k2, k3, k4 = [], [], [], []
+    rounds = sampler_rounds(model, cfg, 128 if args.quick else 1024, gen)
+    require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(cfg.sampler.max_total_iters)],
+            "the sampler's rounds did not reach the round kernel at 128 ... 640 samples")
     if args.quick:
         for dt in ("float32", "bfloat16"):
             k1.append(check_k1(model, cfg, 1000, dt, gen, reps=0))
             k2.append(check_k2(model, cfg, 1000, dt, gen, reps=0))
+            k3.append(check_k3(model, cfg, 1000, dt, gen, reps=0, self_noise=True))
+        for data in (rounds[0], rounds[-1]):
+            k4.extend(check_k4(data, cfg.sampler, refine, reps=0) for refine in (True, False))
     else:
         k1_launch = 1024 * cfg.sampler.n_samples_eval  # one sampler round
         for dt in ("bfloat16", "float32"):
@@ -477,8 +808,15 @@ def main() -> int:
             k1.append(check_k1(model, cfg, 1024 * 640, dt, gen, reps=0))
         for dt in ("float32", "bfloat16"):
             k2.append(check_k2(model, cfg, 4096, dt, gen, reps=0))
+            k3.append(check_k3(model, cfg, 4096, dt, gen, reps=0, self_noise=True))
         n_main = 1024 * (cfg.sampler.n_samples + cfg.sampler.n_samples_extra + 2)
         k2.append(check_k2(model, cfg, n_main, "bfloat16", gen, reps=3, library=True))
+        k3.append(check_k3(model, cfg, n_main, "bfloat16", gen, reps=3,
+                           library=(k2[-1]["fwd_library_ms"], k2[-1]["bwd_library_ms"])))
+        for data in (rounds[0], rounds[-1]):
+            k4.extend(check_k4(data, cfg.sampler, refine, reps=0) for refine in (True, False))
+        k4.append(check_k4(rounds[-1], cfg.sampler, False, reps=20))  # the last round, as the sampler runs it
+        k4.append(check_k4(rounds[-1], cfg.sampler, True, reps=20))
     for r in k1:
         print(f"K1 {r['dtype']} n={r['n']}: err {r['err']:.3g}"
               + (f", {r['ms']:.3f} ms (plain {r['plain_ms']:.3f})" if "ms" in r else ""), flush=True)
@@ -486,48 +824,87 @@ def main() -> int:
         print(f"K2 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])} bwd {json.dumps(r['bwd_err'])}"
               + (f", fwd {r['fwd_ms']:.3f} ms, bwd {r['bwd_ms']:.3f} ms" if "fwd_ms" in r else ""),
               flush=True)
-    report["k1"], report["k2"] = k1, k2
+    for r in k3:
+        print(f"K3 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])}; against K2: fwd "
+              f"{r['fwd_vs_k2']:.3g}, bwd {r['bwd_vs_k2']:.3g}; bwd against autograd: L2 "
+              f"{json.dumps(r['bwd_l2'])}, max {json.dumps(r['bwd_max'])}, "
+              f"{r['bwd_points_off']} points off in dx or dd"
+              + (f"; autograd against itself, products in two halves: L2 {r['plain_self_l2']:.3g}, "
+                 f"max {r['plain_self_max']:.3g}" if "plain_self_l2" in r else "")
+              + (f"; fwd {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}), bwd {r['bwd_ms']:.3f} ms "
+                 f"(plain {r['bwd_plain_ms']:.3f})" if "fwd_ms" in r else ""), flush=True)
+    for r in k4:
+        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on "
+              f"{r['flipped_rays']} rays, max |err| elsewhere {r['max_abs_err']:.3g}, "
+              f"{r['nan_rows']} rows with a NaN pdf"
+              + (f", {r['ms']:.4f} ms (plain {r['plain_ms']:.3f})" if "ms" in r else ""), flush=True)
+    report.update(k1=k1, k2=k2, k3=k3, k4=k4)
     os.makedirs(OUT_DIR, exist_ok=True)
     out_path = os.path.join(OUT_DIR, "chip_smoke.json")
 
     if not args.quick:
-        train = train_steps(5)
-        report["train"] = train
-        print(f"train: losses {train['losses']}", flush=True)
+        runs = {}
+        for path, n_steps in (("main", 5), ("recompute", 3), ("fused_rounds", 3)):
+            runs[path] = train_steps(path, n_steps)
+            print(f"{path}: losses {runs[path]['losses']}, ms/step {runs[path]['median_ms']:.2f}, "
+                  f"launches {runs[path]['launches']}", flush=True)
+        train = report["train"] = runs["main"]
+        report["train_paths"] = runs
         print(f"ms/step: {train['median_ms']:.2f}", flush=True)
         print(f"rays/s: {train['rays_per_sec']:.1f}", flush=True)
+        report["eval_forward"] = eval_forward(1024)
+        print(f"eval forward (no grad, 1024 rays): launches {report['eval_forward']['launches']}, "
+              f"err against the plain field path {json.dumps(report['eval_forward']['err'])}", flush=True)
+        if args.turns:
+            report["turns"] = time_paths_in_turns(args.turns)
+            for path, r in report["turns"].items():
+                print(f"in turns, {path}: median {r['median_ms']:.2f} ms/step (quartiles "
+                      f"{r['q1_ms']:.2f} .. {r['q3_ms']:.2f}, min {r['min_ms']:.2f}) over {r['n']} steps",
+                      flush=True)
         if args.profile:
-            prof = profile_steps(3, os.path.join(OUT_DIR, "profile.txt"))
-            report["profile"] = prof
-            print(f"profile: wall {prof['wall_ms_per_step']:.2f} ms/step, device busy "
-                  f"{prof['device_busy_ms_per_step']:.2f} ms/step, idle share "
-                  f"{prof['idle_share']:.3f}", flush=True)
-            for ms, cnt, key in prof["top"]:
-                print(f"  {ms:9.3f} ms/step {cnt:5d}x  {key[:100]}", flush=True)
+            report["profile"] = {}
+            for path in PATHS:
+                prof = profile_steps(path, 3, os.path.join(OUT_DIR, f"profile_{path}.txt"))
+                report["profile"][path] = prof
+                print(f"profile {path}: wall {prof['wall_ms_per_step']:.2f} ms/step, device busy "
+                      f"{prof['device_busy_ms_per_step']:.2f} ms/step in "
+                      f"{prof['launches_per_step']:.0f} launches/step, idle share "
+                      f"{prof['idle_share']:.3f}", flush=True)
+                for ms, cnt, key in prof["top"]:
+                    print(f"  {ms:9.3f} ms/step {cnt:7.1f}x  {key[:100]}", flush=True)
         paths = compare_paths()
         report["paths"] = paths
-        print(f"kernel vs plain step: loss {paths['kernel']['loss']:.6g} vs {paths['plain']['loss']:.6g}; "
-              f"plain step ms {paths['plain_step_ms']}", flush=True)
-        t1, t2 = k1[0], k2[-1]
-        main = train["launches"]
+        for key in ("loss", "rgb_loss", "eikonal_loss"):
+            print(f"one step, {key}: " + ", ".join(
+                f"{name} {paths[name][key]:.6g}" for name in (*PATHS, "plain")), flush=True)
+        print(f"z values with K4 against without: median |diff| {paths['z_median_diff']:.3g}, "
+              f"mean {paths['z_mean_diff']:.3g}; plain step ms {paths['plain_step_ms']}", flush=True)
+        t1, t2, t3, t4 = k1[0], k2[-1], k3[-1], k4[-1]
+        src = "neat_tpu_torch/csrc/"
         kernels = [
-            dict(name="fused_sdf", route="cuda", source="neat_tpu_torch/csrc/fused_sdf.cu",
-                 replaces="neat_tpu/ops/fused_sdf.py:66", launches=main["fused_sdf"],
+            dict(name="fused_sdf", route="cuda", source=src + "fused_sdf.cu",
+                 replaces="neat_tpu/ops/fused_sdf.py:66", launches=runs["main"]["launches"]["fused_sdf"],
                  max_abs_err=t1["max_abs_err"], ms=t1["ms"], plain_ms=t1["plain_ms"],
                  bound_ms=t1["bound_ms"], bound_by=t1["bound_by"], library_ms=t1["library_ms"]),
-            dict(name="field_fwd_stash", route="cuda",
-                 source="neat_tpu_torch/csrc/fused_field_stash.cu",
-                 replaces="neat_tpu/ops/fused_field_stash.py:448",
-                 launches=main["field_fwd_stash"], max_abs_err=t2["fwd_max_abs_err"],
-                 ms=t2["fwd_ms"], plain_ms=t2["fwd_plain_ms"], bound_ms=t2["fwd_bound_ms"],
-                 bound_by=t2["fwd_bound_by"], library_ms=t2["fwd_library_ms"]),
-            dict(name="field_bwd_stash", route="cuda",
-                 source="neat_tpu_torch/csrc/fused_field_stash.cu",
-                 replaces="neat_tpu/ops/fused_field_stash.py:465",
-                 launches=main["field_bwd_stash"], max_abs_err=t2["bwd_max_abs_err"],
-                 ms=t2["bwd_ms"], plain_ms=t2["bwd_plain_ms"], bound_ms=t2["bwd_bound_ms"],
-                 bound_by=t2["bwd_bound_by"], library_ms=t2["bwd_library_ms"]),
         ]
+        for name, file, line, rec, side, path in (
+            ("field_fwd_stash", "fused_field_stash", 448, t2, "fwd", "main"),
+            ("field_bwd_stash", "fused_field_stash", 465, t2, "bwd", "main"),
+            ("field_fwd", "fused_field", 210, t3, "fwd", "recompute"),
+            ("field_bwd", "fused_field", 223, t3, "bwd", "recompute"),
+        ):
+            kernels.append(dict(
+                name=name, route="cuda", source=f"{src}{file}.cu",
+                replaces=f"neat_tpu/ops/{file}.py:{line}", launches=runs[path]["launches"][name],
+                max_abs_err=rec[f"{side}_max_abs_err"], ms=rec[f"{side}_ms"],
+                plain_ms=rec[f"{side}_plain_ms"], bound_ms=rec[f"{side}_bound_ms"],
+                bound_by=rec[f"{side}_bound_by"], library_ms=rec[f"{side}_library_ms"]))
+        kernels.append(dict(
+            name="fused_round", route="cuda", source=src + "fused_round.cu",
+            replaces="neat_tpu/ops/fused_round.py:105",
+            launches=runs["fused_rounds"]["launches"]["fused_round"], max_abs_err=t4["max_abs_err"],
+            ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
+            library_ms=None))
         report["kernels"] = kernels
     with open(out_path, "w") as f:
         json.dump(report, f, indent=1)

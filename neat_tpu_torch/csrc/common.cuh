@@ -1,4 +1,4 @@
-// Building blocks shared by the fused SDF (K1) and fused field (K2) kernels.
+// Building blocks shared by the fused SDF (K1) and fused field (K2, K3) kernels.
 //
 // A block of NT = 256 threads owns a tile of TT = 32 points. Activations
 // and cotangents of the tile live in shared memory as float, already

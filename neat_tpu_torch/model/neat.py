@@ -8,10 +8,12 @@ can feed both packages the same numbers.
 
 The kernel flags keep their JAX names: ``use_pallas_sampler`` routes the
 sampler's proposal SDF through the hand-written CUDA kernel K1
-(``ops/fused_sdf.py``); ``use_pallas_field`` with ``pallas_field_backward
-= 'stash'`` routes the main field pass through K2-fwd / K2-bwd
-(``ops/fused_field_stash.py``). On CPU tensors those wrappers run their
-plain versions.
+(``ops/fused_sdf.py``); ``use_pallas_field`` routes the main field pass
+through K2-fwd / K2-bwd (``pallas_field_backward = 'stash'``,
+``ops/fused_field_stash.py``) or K3-fwd / K3-bwd (``'recompute'``,
+``ops/fused_field.py``); ``sampler.fused_rounds = 'on'`` runs the sampler's
+rounds through K4 (``ops/fused_round.py``). On CPU tensors those wrappers
+run their plain versions.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class NeatConfig:
     """Field for field the JAX ``NeatConfig``. In this package the kernel
     flags select the hand-written CUDA kernels: ``use_pallas_sampler`` ->
-    K1, ``use_pallas_field`` + ``pallas_field_backward='stash'`` -> K2.
+    K1, ``use_pallas_field`` -> K2 (``pallas_field_backward='stash'``) or
+    K3 (``'recompute'``).
     Only the default ``neat`` variant is ported; other variant flags raise
     ``NotImplementedError`` (ROADMAP.md §1 item 13)."""
 
@@ -132,9 +135,9 @@ def check_ported(cfg: NeatConfig) -> None:
                 f"NeatConfig.{name}={getattr(cfg, name)!r} is not ported yet "
                 "(ROADMAP.md §1 item 13); only the default neat variant runs"
             )
-    if cfg.use_pallas_field and cfg.pallas_field_backward != "stash":
-        raise NotImplementedError(
-            "pallas_field_backward='recompute' needs the K3 kernels, not ported yet (ROADMAP.md §2)"
+    if cfg.pallas_field_backward not in ("stash", "recompute"):
+        raise ValueError(
+            f"pallas_field_backward is 'stash' or 'recompute', got {cfg.pallas_field_backward!r}"
         )
 
 
@@ -246,7 +249,7 @@ def neat_forward(
     fdtype = _DTYPES[cfg.field_compute_dtype]
     fdtype = None if fdtype == torch.float32 else fdtype
     if cfg.use_pallas_field:
-        from ..ops.fused_field import supports_field_math
+        from ..ops.fused_field import fused_field_eval, supports_field_math
         from ..ops.fused_field_stash import fused_field_eval_stash
 
         if not supports_field_math(cfg.implicit, cfg.rendering, cfg.attraction):
@@ -254,7 +257,10 @@ def neat_forward(
                 "use_pallas_field=True needs the 9-layer skip-4 SDF and 5-layer "
                 "idr heads the fused field math implements"
             )
-        sdf, grads, rgb_flat, lines3d_flat = fused_field_eval_stash(
+        field_eval = (
+            fused_field_eval_stash if cfg.pallas_field_backward == "stash" else fused_field_eval
+        )
+        sdf, grads, rgb_flat, lines3d_flat = field_eval(
             model, points_flat, dirs_flat, cfg.implicit, cfg.rendering,
             compute_dtype=cfg.field_compute_dtype, acfg=cfg.attraction,
         )

@@ -19,11 +19,15 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_sdf", "fused_field_stash")
+SOURCES = ("fused_sdf", "fused_field_stash", "fused_field", "fused_round")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The round kernel's bisection decides on err <= eps: without fused
+# multiply-adds each product and sum rounds as the plain version's own
+# elementwise operations do. It holds no matrix product to lose by it.
+EXTRA_FLAGS = {"fused_round": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}  # loaded once per process
 
@@ -59,7 +63,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if not _stale(name):
             continue
         tmp = BUILD_DIR / f".lib{name}.{os.getpid()}.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp,

@@ -1,22 +1,75 @@
-"""Helpers shared by the fused field kernels (port of the helper half of
-neat_tpu/ops/fused_field.py).
+"""K3: the fused field evaluation that keeps no residuals (K3-fwd) and the
+backward that re-runs the forward (K3-bwd); and the helpers both field
+kernel pairs share.
 
-The recompute kernels of that module (K3-fwd, K3-bwd) are not ported yet;
-this file holds what the stashed field kernel (``fused_field_stash``)
-needs: the architecture guard, weight-norm resolution into the kernel's
-operand list, and the kernel-layout positional encoding.
+Replaces ``neat_tpu/ops/fused_field.py:_fwd_kernel`` (launched by
+``_fwd_pallas``) and ``_bwd_kernel`` (``_bwd_pallas``) with the two CUDA
+kernels in ``csrc/fused_field.cu``. The math is ``field_math`` below, the
+JAX package's ``_field_math`` in plain PyTorch: the 9-layer implicit chain
+with the sphere clamp, the spatial gradient of the clamped sdf by autograd,
+and the two heads. ``torch.autograd`` of ``field_math`` is the plain version
+of K3-bwd, as ``jax.vjp(_field_math)`` is the body of the TPU kernel.
+
+What bounds them on the H100: operations. K3-fwd does the stashing
+forward's 3.04 MFLOP per point and moves 76 bytes per point instead of
+9.3 KB; K3-bwd does forward plus backward, 10.04 MFLOP per point, and
+moves 100 bytes per point plus the gradients.
+
+What the design does about it. Both kernels are persistent: one 256-thread
+block per SM walks the 32-point tiles. The forward's reverse sweep needs
+the eight post-activations of the tile, which do not fit in shared memory
+beside the working buffers; they go to a per-block scratch in the stash's
+column layout (32 x 4057 compute-dtype values, L2-resident, rewritten by
+every tile) instead of an (N, 4057) array. K3-bwd runs the same forward
+tile into that scratch, with the f32 embedding, z8, rgb and grads beside
+it, and then the stash-replaying backward's tile body on the scratch: one
+forward body and one backward body serve K2 and K3 (``csrc/field_tile.cuh``).
+Parameter gradients are per-block f32 partials summed in block order, as
+in K2-bwd. In f32 the result is ``torch.autograd`` of ``field_math`` up to
+summation order. In bf16 the kernel rounds each backward product's
+operands to bf16 (the stash backward's choice), where autograd rounds the
+activation cotangents only.
+
+How it can be checked: on the same inputs K3 equals K2-fwd followed by
+K2-bwd entry for entry. Against autograd of ``field_math`` only the forward
+agrees entry for entry: the backward re-runs the forward, and a relu whose
+pre-activation two summation orders put on different sides of 0 changes
+that point's whole backward, so among thousands of points a few differ,
+in f32 too. That comparison is held in relative L2 norm (``chip_smoke.py``
+states the limits and prints autograd's difference from itself beside it).
+
+The TPU package's ceiling on differentiated points
+(``MAX_FUSED_FIELD_BWD_POINTS``) guarded a fault of that machine and has no
+counterpart here.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Sequence, Tuple
 
 import torch
 
-from ..fields.mlp import ImplicitNetConfig, LayerStack, RenderNetConfig
+from ..fields.mlp import (
+    ImplicitNetConfig,
+    LayerStack,
+    RenderNetConfig,
+    _input_grad,
+    _skip_concat,
+    _softplus100,
+)
+from . import _build
 
 N_IMPLICIT_LAYERS = 9
 N_HEAD_LAYERS = 5  # rendering / attraction MLPs: 4 hidden + 1 out
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
+# canonical (in, out) widths of the 19 layers: implicit, rendering, attraction
+CANONICAL_SHAPES = (
+    ((39, 256), (256, 256), (256, 256), (256, 217)) + ((256, 256),) * 4 + ((256, 257),)
+    + ((289, 256),) + ((256, 256),) * 3 + ((256, 3),)
+    + ((265, 256),) + ((256, 256),) * 3 + ((256, 6),)
+)
+OUT_WIDTHS = (1, 3, 3, 6)  # sdf, grads, rgb, att
 
 
 def supports_fused_field(
@@ -96,3 +149,281 @@ def _pe(x: torch.Tensor, multires: int) -> torch.Tensor:
         outs.append(torch.sin(f * x))
         outs.append(torch.cos(f * x))
     return torch.cat(outs, dim=-1)
+
+
+def _mm(h, w, cd, el):
+    """dot(h.astype(cd), w.astype(cd)) with el accumulation."""
+    return h.to(cd).to(el) @ w.to(cd).to(el)
+
+
+def _sphere(x, icfg: ImplicitNetConfig):
+    """(|x|, scale * (R - |x|)), the bounding-sphere branch of the sdf
+    clamp; (None, None) when the clamp is off."""
+    if icfg.sdf_bounding_sphere > 0.0:
+        norm_x = torch.linalg.norm(x, dim=-1, keepdim=True)
+        return norm_x, icfg.sphere_scale * (icfg.sdf_bounding_sphere - norm_x)
+    return None, None
+
+
+def _implicit_chain(iw, e_cd, cd, el):
+    """The 9 implicit layers on the compute-dtype embedding: (z8 in el, the
+    eight post-activations in cd)."""
+    posts = []
+    h = e_cd
+    for l in range(N_IMPLICIT_LAYERS):
+        if l == 4:
+            h = _skip_concat(h, e_cd)
+        w, b = iw[l]
+        z = _mm(h, w, cd, el) + b
+        if l < N_IMPLICIT_LAYERS - 1:
+            h = _softplus100(z).to(cd)
+            posts.append(h)
+    return z, posts
+
+
+def _head(weights, inp, cd, el):
+    """A 5-layer relu head: (output in el, the four post-activations in cd)."""
+    posts = []
+    h = inp.to(cd)
+    for l in range(N_HEAD_LAYERS):
+        w, b = weights[l]
+        h = _mm(h, w, cd, el) + b
+        if l < N_HEAD_LAYERS - 1:
+            h = torch.clamp(h, min=0.0).to(cd)
+            posts.append(h)
+    return h, posts
+
+
+def field_math(flat_eff, x, d, icfg: ImplicitNetConfig, rcfg: RenderNetConfig, compute_dtype):
+    """The per-point field math: (sdf (N,1), grads (N,3), rgb (N,3),
+    att (N,6)) from the 38 resolved operands, points x and directions d.
+
+    ``att`` is the raw offset head; the caller assembles the endpoints. The
+    spatial gradient is autograd's, of the clamped sdf; when the caller
+    records a graph it is recorded through the gradient too, so the
+    outputs differentiate to second order."""
+    iw, rw, aw = _unflatten_eff(flat_eff)
+    cd = compute_dtype
+    el = torch.promote_types(torch.float32, cd)
+
+    def implicit_with_clamp(pts):
+        z8, _ = _implicit_chain(iw, _pe(pts, icfg.multires).to(cd), cd, el)
+        sdf_raw, feats = z8[..., :1], z8[..., 1:]
+        _, sphere = _sphere(pts, icfg)
+        return (torch.minimum(sdf_raw, sphere) if sphere is not None else sdf_raw), feats
+
+    (sdf, feats), grads = _input_grad(implicit_with_clamp, x)
+    d_enc = _pe(d, rcfg.multires_view) if rcfg.multires_view > 0 else d
+    zr, _ = _head(rw, torch.cat([x, d_enc, grads, feats], dim=-1), cd, el)
+    att, _ = _head(aw, torch.cat([x, d, grads, feats], dim=-1), cd, el)
+    return sdf, grads, torch.sigmoid(zr), att
+
+
+# ---------------------------------------------------------------------------
+# CUDA launchers
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(flat_eff, x, d, cd, tensors=()):
+    """Raise on anything the field kernels do not take."""
+    if cd not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused field kernels take bf16 or f32 compute, got {cd}")
+    if tuple(tuple(w.shape) for w in flat_eff[0::2]) != CANONICAL_SHAPES:
+        raise ValueError("fused field kernels take the canonical 8x256 / 4x256 architecture only")
+    for t in (x, d):
+        if t.dim() != 2 or t.shape[1] != 3 or t.dtype != torch.float32:
+            raise ValueError("fused field kernels take (N, 3) f32 points and directions")
+    if not x.is_cuda:
+        raise ValueError("fused field kernels take CUDA tensors")
+    for t in (*flat_eff, d, *tensors):
+        if t.device != x.device:
+            raise ValueError("fused field kernel operands must share one CUDA device")
+    for t in (x, d, *tensors):
+        if not t.is_contiguous():
+            raise ValueError("fused field kernels take contiguous tensors")
+
+
+def _check_cotangents(cots, n):
+    for c, w in zip(cots, OUT_WIDTHS):
+        if c.shape != (n, w) or c.dtype != torch.float32:
+            raise ValueError("fused field backward takes f32 cotangents shaped like its outputs")
+
+
+def _pack_weights(flat_eff, cd):
+    """W (in, out) and W^T (out, in) of the 19 layers in ``cd``, biases in f32."""
+    ws, bs = flat_eff[0::2], flat_eff[1::2]
+    w_all = torch.cat([w.detach().to(cd).reshape(-1) for w in ws])
+    wt_all = torch.cat([w.detach().T.to(cd).reshape(-1) for w in ws])
+    b_all = torch.cat([b.detach().to(torch.float32).reshape(-1) for b in bs])
+    return w_all, wt_all, b_all
+
+
+def _n_param_grads() -> int:
+    return sum(i * o + o for i, o in CANONICAL_SHAPES)
+
+
+def _entry(lib: str, name: str, cd, n_ptr: int, n_int: int):
+    """The C entry ``name`` of ``csrc/<lib>.cu`` for ``cd``: n_ptr pointers,
+    n_int ints, the sphere radius and scale, the stream."""
+    fn = getattr(_build.load(lib), f"{name}_{'bf16' if cd == torch.bfloat16 else 'f32'}")
+    fn.argtypes = (
+        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _split_param_grads(dparams, flat_eff):
+    """The packed f32 gradient vector as 38 views shaped like the operands."""
+    deff, o = [], 0
+    for w in flat_eff:
+        deff.append(dparams[o : o + w.numel()].view(w.shape))
+        o += w.numel()
+    return tuple(deff)
+
+
+def _layout(n: int, max_blocks: int):
+    """(blocks, f32 gradients, per-block scratch of the forward in cd values,
+    of the backward in cd values, of the backward in f32 values) for n points,
+    as the C side decides them."""
+    fn = _build.load("fused_field").field_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.restype = None
+    blocks = ctypes.c_int()
+    sizes = [ctypes.c_longlong() for _ in range(4)]
+    fn(n, max_blocks, ctypes.byref(blocks), *(ctypes.byref(s) for s in sizes))
+    return (blocks.value, *(s.value for s in sizes))
+
+
+def _n_sm(t) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
+    """Launch K3-fwd: -> sdf (N,1), grads (N,3), rgb (N,3), att (N,6) f32.
+    Nothing else reaches device memory but a per-block scratch."""
+    _check_operands(flat_eff, x, d, cd)
+    n = x.shape[0]
+    kw = dict(dtype=torch.float32, device=x.device)
+    outs = tuple(torch.empty((n, w), **kw) for w in OUT_WIDTHS)
+    if n == 0:
+        return outs
+    n_sm = _n_sm(x)
+    n_blocks, _, fwd_cd, _, _ = _layout(n, n_sm)
+    scratch = torch.empty((n_blocks, fwd_cd), dtype=cd, device=x.device)
+    w_all, wt_all, b_all = _pack_weights(flat_eff, cd)
+    P = _build.ptr
+    err = _entry("fused_field", "field_fwd", cd, 10, 2)(
+        P(x), P(d), P(w_all), P(wt_all), P(b_all), *(P(o) for o in outs), P(scratch),
+        n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+    )
+    _build.check(err, "fused field recompute forward kernel launch")
+    field_fwd_kernel.launches += 1
+    return outs
+
+
+field_fwd_kernel.launches = 0
+
+
+def field_bwd_kernel(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd):
+    """Launch K3-bwd and the sum of its per-block partial gradients:
+    -> (deff (38 f32 tensors shaped like flat_eff), dx (N,3), dd (N,3)).
+    ``cots`` are the contiguous f32 cotangents (N,1), (N,3), (N,3), (N,6)."""
+    n = x.shape[0]
+    _check_cotangents(cots, n)
+    _check_operands(flat_eff, x, d, cd, cots)
+    kw = dict(dtype=torch.float32, device=x.device)
+    dx, dd = torch.empty((n, 3), **kw), torch.empty((n, 3), **kw)
+    n_sm = _n_sm(x)
+    n_blocks, n_p, _, bwd_cd, bwd_f32 = _layout(n, n_sm)
+    if n_p != sum(w.numel() for w in flat_eff):
+        raise ValueError("the fused field backward's layer table does not match the weights")
+    dparams = torch.empty((n_p,), **kw)
+    partials = torch.empty((n_blocks, n_p), **kw)
+    scratch_cd = torch.empty((n_blocks, bwd_cd), dtype=cd, device=x.device)
+    scratch_f32 = torch.empty((n_blocks, bwd_f32), **kw)
+    w_all, wt_all, b_all = _pack_weights(flat_eff, cd)
+    P = _build.ptr
+    err = _entry("fused_field", "field_bwd", cd, 15, 2)(
+        P(x), P(d), *(P(c) for c in cots), P(w_all), P(wt_all), P(b_all),
+        P(dx), P(dd), P(dparams), P(partials), P(scratch_cd), P(scratch_f32),
+        n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+    )
+    _build.check(err, "fused field recompute backward kernel launch")
+    field_bwd_kernel.launches += 1
+    return _split_param_grads(dparams, flat_eff), dx, dd
+
+
+field_bwd_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd op
+# ---------------------------------------------------------------------------
+
+
+def _cotangents(x, grads_out):
+    """Contiguous f32 cotangents, zeros where autograd passed None."""
+    return tuple(
+        torch.zeros((x.shape[0], w), dtype=x.dtype, device=x.device)
+        if c is None else c.contiguous()
+        for c, w in zip(grads_out, OUT_WIDTHS)
+    )
+
+
+def field_primal(flat_eff, x, d, icfg, rcfg, cd):
+    """The four outputs with no autograd node and no residuals: K3-fwd on
+    CUDA tensors, ``field_math`` on CPU tensors."""
+    with torch.no_grad():
+        if x.is_cuda:
+            return field_fwd_kernel(flat_eff, x, d, icfg, cd)
+        return field_math(flat_eff, x, d, icfg, rcfg, cd)
+
+
+class _FusedField(torch.autograd.Function):
+    """The recompute pair as one autograd op: the forward saves only its
+    inputs, the backward re-runs the forward. CUDA tensors launch K3-fwd /
+    K3-bwd; CPU tensors run ``field_math`` and its autograd."""
+
+    @staticmethod
+    def forward(ctx, icfg, rcfg, cd, x, d, *flat_eff):
+        ctx.cfg = (icfg, rcfg, cd)
+        ctx.save_for_backward(x, d, *flat_eff)
+        return field_primal(flat_eff, x, d, icfg, rcfg, cd)
+
+    @staticmethod
+    def backward(ctx, *grads_out):
+        icfg, rcfg, cd = ctx.cfg
+        x, d, *flat_eff = ctx.saved_tensors
+        cots = _cotangents(x, grads_out)
+        if x.is_cuda:
+            deff, dx, dd = field_bwd_kernel(flat_eff, x, d, cots, icfg, cd)
+        else:
+            leaves = [t.detach().requires_grad_(True) for t in (*flat_eff, x, d)]
+            with torch.enable_grad():
+                outs = field_math(leaves[:-2], leaves[-2], leaves[-1], icfg, rcfg, cd)
+            *deff, dx, dd = torch.autograd.grad(outs, leaves, cots)
+        return (None, None, None, dx, dd, *deff)
+
+
+def fused_field_eval(
+    model,
+    points: torch.Tensor,
+    dirs: torch.Tensor,
+    icfg: ImplicitNetConfig,
+    rcfg: RenderNetConfig,
+    compute_dtype: str = "bfloat16",
+    acfg: RenderNetConfig = RenderNetConfig(d_out=6, multires_view=0),
+):
+    """Main-pass field evaluation through K3: (sdf (N,1), grads (N,3),
+    rgb (N,3), lines3d (N,2,3)), differentiable w.r.t. the model's weights,
+    the points and the directions. ``model`` holds the ``implicit``,
+    ``rendering`` and ``attraction`` layer stacks."""
+    cd = _DTYPES[compute_dtype]
+    flat_eff = _flatten_eff(model)
+    if points.is_cuda and not supports_fused_field(icfg, rcfg, acfg):
+        raise ValueError("fused field kernels take the canonical 8x256 / 4x256 architecture only")
+    sdf, grads, rgb, att = _FusedField.apply(icfg, rcfg, cd, points, dirs, *flat_eff)
+    lines3d = points[..., None, :] + att.reshape(*points.shape[:-1], 2, 3)
+    return sdf, grads, rgb, lines3d

@@ -49,29 +49,44 @@ of all 38 gradients (~4.25 MB), and a second kernel sums the partials in
 block order. That is deterministic run to run and needs no atomics, at
 the cost of one partial per block. Padded rows of the last tile carry x = 1, d = 0
 and zero cotangents and are masked out of every sum.
+
+The bodies of both kernels for one tile are device functions in
+``csrc/field_tile.cuh``: the recompute pair (``fused_field``, K3) runs the
+same two bodies on a per-block scratch in place of the stash.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import List
 
 import torch
 
-from ..fields.mlp import ImplicitNetConfig, RenderNetConfig, _skip_concat, _softplus100
+from ..fields.mlp import ImplicitNetConfig, RenderNetConfig, _skip_concat
 from . import _build
 from .fused_field import (
+    _DTYPES,
     N_HEAD_LAYERS,
     N_IMPLICIT_LAYERS,
+    _check_cotangents,
+    _check_operands,
+    _cotangents,
+    _entry,
     _flatten_eff,
+    _head,
+    _implicit_chain,
+    _mm,
+    _n_sm,
+    _pack_weights,
     _pe,
+    _sphere,
+    _split_param_grads,
     _unflatten_eff,
+    field_primal,
     supports_fused_field,
 )
 
 INV_SQRT2 = 1.0 / math.sqrt(2.0)
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float64": torch.float64}
 
 
 def _balanced(a, b):
@@ -81,15 +96,9 @@ def _balanced(a, b):
     return torch.where(a < b, one, torch.where(a == b, 0.5 * one, 0.0 * one))
 
 
-def _mm(h, w, cd, el):
-    """dot(h.astype(cd), w.astype(cd)) with el accumulation."""
-    return h.to(cd).to(el) @ w.to(cd).to(el)
-
-
 def _sphere_terms(x, sdf_raw, icfg):
-    if icfg.sdf_bounding_sphere > 0.0:
-        norm_x = torch.linalg.norm(x, dim=-1, keepdim=True)
-        sphere = icfg.sphere_scale * (icfg.sdf_bounding_sphere - norm_x)
+    norm_x, sphere = _sphere(x, icfg)
+    if sphere is not None:
         return norm_x, sphere, _balanced(sdf_raw, sphere), _balanced(sphere, sdf_raw)
     return None, None, torch.ones_like(sdf_raw), torch.zeros_like(sdf_raw)
 
@@ -102,19 +111,7 @@ def field_fwd_res(flat_eff, x, d, icfg: ImplicitNetConfig, rcfg: RenderNetConfig
     el = torch.promote_types(torch.float32, cd)
 
     e = _pe(x, icfg.multires)
-    e_cd = e.to(cd)
-
-    i_post: List[torch.Tensor] = []
-    h = e_cd
-    for l in range(N_IMPLICIT_LAYERS):
-        if l == 4:
-            h = _skip_concat(h, e_cd)
-        w, b = iw[l]
-        z = _mm(h, w, cd, el) + b
-        if l < N_IMPLICIT_LAYERS - 1:
-            h = _softplus100(z).to(cd)
-            i_post.append(h)
-    z8 = z
+    z8, i_post = _implicit_chain(iw, e.to(cd), cd, el)
     sdf_raw = z8[..., :1]
     feats = z8[..., 1:]
 
@@ -149,20 +146,9 @@ def field_fwd_res(flat_eff, x, d, icfg: ImplicitNetConfig, rcfg: RenderNetConfig
     r_in = torch.cat([x, d_enc, grads, feats], dim=-1)
     a_in = torch.cat([x, d, grads, feats], dim=-1)
 
-    def head_fwd(weights, inp):
-        posts = []
-        h = inp.to(cd)
-        for l in range(N_HEAD_LAYERS):
-            w, b = weights[l]
-            h = _mm(h, w, cd, el) + b
-            if l < N_HEAD_LAYERS - 1:
-                h = torch.clamp(h, min=0.0).to(cd)
-                posts.append(h)
-        return h, posts
-
-    zr, i_r = head_fwd(rw, r_in)
+    zr, i_r = _head(rw, r_in, cd, el)
     rgb = torch.sigmoid(zr)
-    att, i_a = head_fwd(aw, a_in)
+    att, i_a = _head(aw, a_in, cd, el)
 
     res = (e, tuple(i_post), tuple(i_r), tuple(i_a), z8, rgb, grads)
     return (sdf, grads, rgb, att), res
@@ -363,53 +349,6 @@ def _unpack_res(stash_cd, stash_f32, rgb, grads, icfg, rcfg):
 
 W_CD = 4057  # 7 x 256 + 217 implicit post-activations + 2 x 4 x 256 head ones
 W_F32 = 296  # embedding (39) + z8 (257)
-# canonical (in, out) widths of the 19 layers: implicit, rendering, attraction
-CANONICAL_SHAPES = (
-    ((39, 256), (256, 256), (256, 256), (256, 217)) + ((256, 256),) * 4 + ((256, 257),)
-    + ((289, 256),) + ((256, 256),) * 3 + ((256, 3),)
-    + ((265, 256),) + ((256, 256),) * 3 + ((256, 6),)
-)
-
-
-def _check_operands(flat_eff, x, d, cd, tensors=()):
-    """Raise on anything the kernels do not take."""
-    if cd not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"fused field kernels take bf16 or f32 compute, got {cd}")
-    if tuple(tuple(w.shape) for w in flat_eff[0::2]) != CANONICAL_SHAPES:
-        raise ValueError("fused field kernels take the canonical 8x256 / 4x256 architecture only")
-    for t in (x, d):
-        if t.dim() != 2 or t.shape[1] != 3 or t.dtype != torch.float32:
-            raise ValueError("fused field kernels take (N, 3) f32 points and directions")
-    if not x.is_cuda:
-        raise ValueError("fused field kernels take CUDA tensors")
-    for t in (*flat_eff, d, *tensors):
-        if t.device != x.device:
-            raise ValueError("fused field kernel operands must share one CUDA device")
-    for t in (x, d, *tensors):
-        if not t.is_contiguous():
-            raise ValueError("fused field kernels take contiguous tensors")
-
-
-def _pack_weights(flat_eff, cd):
-    """W (in, out) and W^T (out, in) of the 19 layers in ``cd``, biases in f32."""
-    ws, bs = flat_eff[0::2], flat_eff[1::2]
-    w_all = torch.cat([w.detach().to(cd).reshape(-1) for w in ws])
-    wt_all = torch.cat([w.detach().T.to(cd).reshape(-1) for w in ws])
-    b_all = torch.cat([b.detach().to(torch.float32).reshape(-1) for b in bs])
-    return w_all, wt_all, b_all
-
-
-def _fn(name, cd, n_ptr, n_int):
-    """The C entry ``name`` for ``cd``: n_ptr pointers, n_int ints, the
-    sphere radius and scale, the stream."""
-    lib = _build.load("fused_field_stash")
-    fn = getattr(lib, f"{name}_{'bf16' if cd == torch.bfloat16 else 'f32'}")
-    fn.argtypes = (
-        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def field_fwd_stash_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
@@ -428,7 +367,7 @@ def field_fwd_stash_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
         return sdf, grads, rgb, att, scd, sf32
     w_all, wt_all, b_all = _pack_weights(flat_eff, cd)
     P = _build.ptr
-    err = _fn("field_fwd_stash", cd, 11, 1)(
+    err = _entry("fused_field_stash", "field_fwd_stash", cd, 11, 1)(
         P(x), P(d), P(w_all), P(wt_all), P(b_all),
         P(sdf), P(grads), P(rgb), P(att), P(scd), P(sf32), n,
         icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
@@ -439,10 +378,6 @@ def field_fwd_stash_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
 
 
 field_fwd_stash_kernel.launches = 0
-
-
-def _n_param_grads() -> int:
-    return sum(i * o + o for i, o in CANONICAL_SHAPES)
 
 
 def _bwd_layout(n: int, max_blocks: int):
@@ -462,16 +397,14 @@ def field_bwd_stash_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: Im
     -> (deff (38 f32 tensors shaped like flat_eff), dx (N,3), dd (N,3)).
     ``cots`` are the contiguous f32 cotangents (N,1), (N,3), (N,3), (N,6)."""
     n = x.shape[0]
-    for c, w in zip(cots, (1, 3, 3, 6)):
-        if c.shape != (n, w) or c.dtype != torch.float32:
-            raise ValueError("fused field backward takes f32 cotangents shaped like its outputs")
+    _check_cotangents(cots, n)
     if scd.shape != (n, W_CD) or scd.dtype != cd or sf32.shape != (n, W_F32):
         raise ValueError("stash shapes do not match the fused field kernel's layout")
     _check_operands(flat_eff, x, d, cd, (scd, sf32, rgb, grads, *cots))
     kw = dict(device=x.device)
     dx = torch.empty((n, 3), dtype=torch.float32, **kw)
     dd = torch.empty((n, 3), dtype=torch.float32, **kw)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_sm = _n_sm(x)
     n_blocks, n_p, n_scratch = _bwd_layout(n, n_sm)
     if n_p != sum(w.numel() for w in flat_eff):
         raise ValueError("the fused field backward's layer table does not match the weights")
@@ -480,18 +413,14 @@ def field_bwd_stash_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: Im
     partials = torch.empty((n_blocks, n_p), dtype=torch.float32, **kw)
     scratch = torch.empty((n_blocks, n_scratch), dtype=torch.float32, **kw)
     P = _build.ptr
-    err = _fn("field_bwd_stash", cd, 17, 2)(
+    err = _entry("fused_field_stash", "field_bwd_stash", cd, 17, 2)(
         P(x), P(d), P(scd), P(sf32), P(rgb), P(grads), *(P(c) for c in cots),
         P(w_all), P(wt_all), P(dx), P(dd), P(dparams), P(partials), P(scratch),
         n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
     )
     _build.check(err, "fused field backward kernel launch")
     field_bwd_stash_kernel.launches += 1
-    deff, o = [], 0
-    for w in flat_eff:
-        deff.append(dparams[o : o + w.numel()].view(w.shape))
-        o += w.numel()
-    return tuple(deff), dx, dd
+    return _split_param_grads(dparams, flat_eff), dx, dd
 
 
 field_bwd_stash_kernel.launches = 0
@@ -518,16 +447,10 @@ class _FusedFieldStash(torch.autograd.Function):
         return sdf, grads, rgb, att
 
     @staticmethod
-    def backward(ctx, c_sdf, c_g, c_rgb, c_att):
+    def backward(ctx, *grads_out):
         icfg, rcfg, cd = ctx.cfg
         x, d, scd, sf32, rgb, grads, *flat_eff = ctx.saved_tensors
-        outs = (c_sdf, c_g, c_rgb, c_att)
-        shapes = ((1,), (3,), (3,), (6,))
-        cots = tuple(
-            torch.zeros((x.shape[0], *s), dtype=x.dtype, device=x.device)
-            if c is None else c.contiguous()
-            for c, s in zip(outs, shapes)
-        )
+        cots = _cotangents(x, grads_out)
         if x.is_cuda:
             deff, dx, dd = field_bwd_stash_kernel(
                 flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd
@@ -550,11 +473,20 @@ def fused_field_eval_stash(
     """Main-pass field evaluation through K2: (sdf (N,1), grads (N,3),
     rgb (N,3), lines3d (N,2,3)), differentiable w.r.t. the model's weights,
     the points and the directions. ``model`` holds the ``implicit``,
-    ``rendering`` and ``attraction`` layer stacks."""
+    ``rendering`` and ``attraction`` layer stacks.
+
+    When nothing is differentiated (grad mode off, or no operand requires
+    a gradient) it runs the forward that keeps no residuals instead, K3-fwd
+    (``fused_field.field_primal``): no stash is written, no autograd node
+    built, as the JAX op's primal does."""
     cd = _DTYPES[compute_dtype]
     flat_eff = _flatten_eff(model)
     if points.is_cuda and not supports_fused_field(icfg, rcfg, acfg):
         raise ValueError("fused field kernels take the canonical 8x256 / 4x256 architecture only")
-    sdf, grads, rgb, att = _FusedFieldStash.apply(icfg, rcfg, cd, points, dirs, *flat_eff)
+    operands = (points, dirs, *flat_eff)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        sdf, grads, rgb, att = _FusedFieldStash.apply(icfg, rcfg, cd, *operands)
+    else:
+        sdf, grads, rgb, att = field_primal(flat_eff, points, dirs, icfg, rcfg, cd)
     lines3d = points[..., None, :] + att.reshape(*points.shape[:-1], 2, 3)
     return sdf, grads, rgb, lines3d

@@ -6,7 +6,9 @@ refinement rounds (128 -> 256 -> ... -> 640 proposals), each an SDF
 evaluation, the d* triangle bound, a 10-step beta bisection and an
 error-driven inverse-CDF resample; then the final draw of ``n_samples``
 from the rendering weights plus ``n_samples_extra`` leftovers and the
-near/far endpoints. All outputs are constants to autograd.
+near/far endpoints. With ``fused_rounds='on'`` a round's bookkeeping (d*,
+bisection, weights, refinement pdf) is one launch of the round kernel K4.
+All outputs are constants to autograd.
 
 Random draws come in through the same ``noise`` dict as the JAX function
 (``model.neat.draw_forward_noise`` makes it), so z values compare draw for
@@ -102,9 +104,18 @@ class ErrorBoundSamplerConfig:
     max_total_iters: int = 5
     add_tiny: float = 0.0
     inverse_sphere_bg: bool = False
-    beta_search: str = "bisect"  # only 'bisect' is ported
+    # 'bisect' = the 10-step sequential line search; 'grid' evaluates the
+    # error bound at beta_grid_size log-spaced betas in one batched pass
+    # and takes the smallest admissible one
+    beta_search: str = "bisect"
     beta_grid_size: int = 32
-    fused_rounds: str = "off"  # the round kernel (K4) is not ported yet
+    # 'on' runs each refinement round's bookkeeping (d*, the beta bisection,
+    # weights, refinement pdf) through the round kernel K4
+    # (ops/fused_round.py). It needs R % 128 == 0, n_samples_eval % 128 == 0
+    # and the bisect search; other shapes take the unfused path, as in the
+    # JAX package. The JAX 'interpret' value has no counterpart: on CPU
+    # tensors 'on' runs the kernel's plain version.
+    fused_rounds: str = "off"  # 'off' | 'on'
 
     @property
     def far_value(self) -> float:
@@ -173,10 +184,10 @@ def error_bound_z_vals(
     every random draw: strat (R, n_samples_eval), final_u (R, n_samples),
     z_extra_idx (n_samples_extra,), eik_z_idx (R, 1).
     """
-    if cfg.beta_search != "bisect" or cfg.fused_rounds != "off":
-        raise NotImplementedError(
-            "only the bisect beta search without fused rounds is ported "
-            "(grid search and the round kernel K4 are queued in ROADMAP.md)"
+    if cfg.beta_search not in ("bisect", "grid") or cfg.fused_rounds not in ("off", "on"):
+        raise ValueError(
+            f"beta_search is 'bisect' or 'grid' and fused_rounds 'off' or 'on', got "
+            f"{cfg.beta_search!r} and {cfg.fused_rounds!r}"
         )
     noise = noise or {}
     n_rays = ray_dirs.shape[0]
@@ -201,43 +212,82 @@ def error_bound_z_vals(
     bound = (1.0 / (4.0 * math.log(cfg.eps + 1.0))) * torch.sum(dists0**2, -1)
     beta = torch.sqrt(bound)
 
+    # the round kernel hard-codes the bisection, so a grid search keeps the
+    # unfused path (swapping the search silently would spoil a comparison)
+    use_fused_rounds = (
+        cfg.fused_rounds == "on"
+        and n_rays % 128 == 0
+        and cfg.n_samples_eval % 128 == 0
+        and cfg.beta_search == "bisect"
+    )
+
     u_lin = torch.linspace(0.0, 1.0, cfg.n_samples_eval, **kw).expand(n_rays, -1)
+
+    def refined(z_vals, sdf, pdf):
+        """Draw n_samples_eval more proposals from the interval pdf (R, S-1)
+        and merge them, sorted, with their sdf."""
+        cdf = torch.cumsum(pdf, dim=-1)
+        cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+        new_z = _invert_cdf(z_vals, cdf, u_lin)
+        return _sort_carry(
+            torch.cat([z_vals, new_z], dim=-1), torch.cat([sdf, eval_sdf(new_z)], dim=-1)
+        )
+
     weights = None
     for it in range(cfg.max_total_iters):
+        refine = it < cfg.max_total_iters - 1
+        if use_fused_rounds:
+            from ..ops.fused_round import fused_sampler_round
+
+            beta, weights, pdf_full = fused_sampler_round(
+                z_vals, sdf, beta, beta0, eps=cfg.eps, beta_iters=cfg.beta_iters,
+                add_tiny=cfg.add_tiny, refine=refine,
+            )
+            if refine:
+                z_vals, sdf = refined(z_vals, sdf, pdf_full[:, :-1])
+            continue
+
         dists = z_vals[..., 1:] - z_vals[..., :-1]
         d_star = _d_star(z_vals, sdf)
 
         curr_error = _error_bound(beta0, density_params, beta_min, sdf, dists, d_star)
         beta = torch.where(curr_error <= cfg.eps, beta0, beta)
-        beta_lo = beta0.to(ray_dirs.dtype).expand(n_rays)
-        beta_hi = beta
-        for _ in range(cfg.beta_iters):
-            beta_mid = 0.5 * (beta_lo + beta_hi)
-            err = _error_bound(beta_mid[:, None], density_params, beta_min, sdf, dists, d_star)
+        if cfg.beta_search == "grid":
+            # one batched evaluation at log-spaced candidates in [beta0, beta]
+            t = torch.linspace(0.0, 1.0, cfg.beta_grid_size, **kw)
+            ratio = torch.clamp(beta / beta0, min=1.0)
+            betas = beta0 * ratio[:, None] ** t[None, :]  # (R, K), ascending
+            err = _error_bound(
+                betas[:, :, None], density_params, beta_min,
+                sdf[:, None, :], dists[:, None, :], d_star[:, None, :],
+            )  # (R, K)
             ok = err <= cfg.eps
-            beta_hi = torch.where(ok, beta_mid, beta_hi)
-            beta_lo = torch.where(ok, beta_lo, beta_mid)
-        beta = beta_hi
+            first = torch.argmax(ok.to(torch.int8), dim=-1)
+            chosen = torch.gather(betas, -1, first[:, None])[:, 0]
+            beta = torch.where(torch.any(ok, dim=-1), chosen, beta)
+        else:
+            beta_lo = beta0.to(ray_dirs.dtype).expand(n_rays)
+            beta_hi = beta
+            for _ in range(cfg.beta_iters):
+                beta_mid = 0.5 * (beta_lo + beta_hi)
+                err = _error_bound(beta_mid[:, None], density_params, beta_min, sdf, dists, d_star)
+                ok = err <= cfg.eps
+                beta_hi = torch.where(ok, beta_mid, beta_hi)
+                beta_lo = torch.where(ok, beta_lo, beta_mid)
+            beta = beta_hi
 
         density = laplace_density(sdf, density_params, beta_min=beta_min, beta=beta[:, None])
         alpha, transmittance, _ = alpha_transmittance(z_vals, density)
         weights = alpha * transmittance
 
-        if it < cfg.max_total_iters - 1:
+        if refine:
             err_sec = (
                 torch.exp(-d_star / beta[:, None]) * (dists**2) / (4.0 * beta[:, None] ** 2)
             )
             err_int = torch.cumsum(err_sec, dim=-1)
             bound_opacity = (torch.clamp(torch.exp(err_int), max=1e6) - 1.0) * transmittance[..., :-1]
             pdf = bound_opacity + cfg.add_tiny
-            pdf = pdf / torch.sum(pdf, dim=-1, keepdim=True)
-            cdf = torch.cumsum(pdf, dim=-1)
-            cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
-            new_z = _invert_cdf(z_vals, cdf, u_lin)
-            new_sdf = eval_sdf(new_z)
-            z_vals, sdf = _sort_carry(
-                torch.cat([z_vals, new_z], dim=-1), torch.cat([sdf, new_sdf], dim=-1)
-            )
+            z_vals, sdf = refined(z_vals, sdf, pdf / torch.sum(pdf, dim=-1, keepdim=True))
 
     z_samples = sample_pdf(
         z_vals, weights[..., :-1], cfg.n_samples, det=not training, u=noise.get("final_u")

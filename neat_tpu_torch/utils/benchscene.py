@@ -9,6 +9,7 @@ on an ABC-toy-shaped synthetic scene: 512 x 512, 4 views, ``BENCH_L_MAX``
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,19 +20,37 @@ BENCH_N_RAYS = 1024
 BENCH_L_MAX = 40
 
 
-def bench_config(dtype: str = "bfloat16", device="cuda"):
-    """The benchmarked NeatConfig. On a CUDA device it takes the kernel
-    path, as the JAX package does on a TPU: K1 for the sampler and the
-    stashed K2 field pass, at ``dtype``. Elsewhere the plain torch path."""
+def bench_config(
+    dtype: str = "bfloat16",
+    field: Optional[str] = None,
+    beta_search: str = "bisect",
+    fused_rounds: str = "off",
+    device="cuda",
+):
+    """The benchmarked NeatConfig, with the JAX package's arguments.
+
+    On a CUDA device the sampler's proposal SDF goes through K1. ``field``:
+    None = the default, the stashed K2 field pass on a CUDA device in bf16
+    and the plain PyTorch path elsewhere; ``'xla'`` forces the plain path
+    (the name is the JAX package's, kept so the counterpart is found),
+    ``'recompute'`` K3, ``'stash'`` K2. ``beta_search`` is ``'bisect'`` or
+    ``'grid'``. ``fused_rounds='on'`` runs the sampler's rounds through K4;
+    it stays off by default, as in the JAX package."""
     from ..model.neat import NeatConfig
     from ..ops.fused_sdf import supports_fused_sdf
 
+    if field not in (None, "xla", "recompute", "stash"):
+        raise ValueError(f"field is None, 'xla', 'recompute' or 'stash', got {field!r}")
     cfg = dataclasses.replace(NeatConfig.for_abc(), field_compute_dtype=dtype)
-    if torch.device(device).type == "cuda" and supports_fused_sdf(cfg.implicit):
-        cfg = dataclasses.replace(
-            cfg, use_pallas_sampler=True, use_pallas_field=True, pallas_field_backward="stash"
-        )
-    return cfg
+    on_cuda = torch.device(device).type == "cuda"
+    if on_cuda and supports_fused_sdf(cfg.implicit):
+        cfg = dataclasses.replace(cfg, use_pallas_sampler=True)
+    if field is None:
+        field = "stash" if (on_cuda and dtype == "bfloat16") else "xla"
+    if field != "xla":
+        cfg = dataclasses.replace(cfg, use_pallas_field=True, pallas_field_backward=field)
+    sampler = dataclasses.replace(cfg.sampler, beta_search=beta_search, fused_rounds=fused_rounds)
+    return dataclasses.replace(cfg, sampler=sampler)
 
 
 def bench_scene(cfg, device="cuda"):

@@ -8,14 +8,22 @@ inside the fixture, never at import). Run on a machine with a card:
 Tolerances, of each output's own largest entry (so zeros or a flipped sign
 score 1 or 2): f32 1e-3 — the kernels sum in another order than cuBLAS;
 bf16 3e-2 — also the rare activation whose f32 sum rounds to the
-neighbouring bf16 value.
+neighbouring bf16 value. K3-bwd re-runs its forward, so against autograd
+of ``field_math`` a relu that an f32 sum in another order moves across 0
+changes a point's whole backward: it is held entrywise (1e-6) against
+K2-fwd + K2-bwd, which share its tile bodies, and in relative L2 norm (f32
+5e-3, bf16 0.15) against autograd. K4: rays whose beta differs (one flipped
+``err <= eps`` decision) may be 0.5% of the rays; the others agree to rtol
+2e-4 / atol 2e-5.
 """
 
 import pytest
 import torch
 
 from neat_tpu_torch.model.neat import init_neat
+from neat_tpu_torch.ops import fused_field as F
 from neat_tpu_torch.ops import fused_field_stash as K
+from neat_tpu_torch.ops import fused_round as R
 from neat_tpu_torch.ops.fused_field import _flatten_eff
 from neat_tpu_torch.ops.fused_sdf import _effective_weights, fused_sdf_kernel, fused_sdf_plain
 from neat_tpu_torch.core.embedder import positional_encoding
@@ -76,13 +84,70 @@ def test_k2_kernels_match_plain(setup, cd):
         assert _err(a, b) < TOL[cd]
 
 
-def test_training_step_launches_every_kernel(setup):
-    cfg, _ = setup
+def _field_inputs(n):
+    x = (torch.rand((n, 3), device="cuda") * 2 - 1) * 1.5
+    x[: n // 10] *= 3.2 / torch.linalg.norm(x[: n // 10], dim=-1, keepdim=True)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), device="cuda"), dim=-1)
+    return x, d, tuple(torch.randn((n, w), device="cuda") for w in (1, 3, 3, 6))
+
+
+@pytest.mark.parametrize("cd", DTYPES)
+def test_k3_kernels_match_plain_and_k2(setup, cd):
+    cfg, model = setup
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    x, d, cots = _field_inputs(1000)
+    flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+    with torch.no_grad():
+        got = F.field_fwd_kernel(flat, x, d, icfg, cd)
+        ref = F.field_math(flat, x, d, icfg, rcfg, cd)
+        k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
+        deff, dx, dd = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
+        deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
+    fwd_tol = 1e-5 if cd == torch.float32 else 3e-2
+    for a, b, c in zip(got, ref, k2):
+        assert _err(a, b) < fwd_tol and _err(a, c) <= 1e-6
+    for a, b in zip((*deff, dx, dd), (*deff2, dx2, dd2)):
+        assert _err(a, b) <= 1e-6
+    leaves = [w.clone().requires_grad_(True) for w in (*flat, x, d)]
+    plain = torch.autograd.grad(F.field_math(leaves[:-2], leaves[-2], leaves[-1], icfg, rcfg, cd), leaves, cots)
+    l2_tol = 5e-3 if cd == torch.float32 else 0.15
+    for a, b in zip((*deff, dx, dd), plain):
+        assert float((a - b).norm()) <= l2_tol * float(b.norm())
+
+
+@pytest.mark.parametrize("refine", [True, False])
+def test_k4_kernel_matches_plain(setup, refine):
+    rays, lanes = 256, 384
+    z = torch.sort(torch.rand((rays, lanes), device="cuda") * 6.0, dim=-1).values
+    sdf = (z - 3.0).abs() - 1.5 + 0.3 * torch.randn((rays, lanes), device="cuda")
+    beta = torch.rand((rays,), device="cuda") * 0.45 + 0.05
+    beta0 = torch.tensor([2.1e-3], device="cuda")
+    args = (0.1, 10, 0.0, refine)
+    bk, wk, pk = R.fused_round_kernel(z, sdf, beta, beta0, *args)
+    bp, wp, pp = R.fused_round_plain(z, sdf, beta, beta0[0], *args)
+    keep = (bk - bp).abs() <= 2e-4 * bp.abs()
+    assert int((~keep).sum()) <= 0.005 * rays
+    assert torch.allclose(wk[keep], wp[keep], rtol=2e-4, atol=2e-5)
+    assert torch.allclose(pk[keep], pp[keep], rtol=2e-4, atol=2e-5, equal_nan=True)
+    assert bool((pk[:, -1] == 0).all()) and (refine or bool((pk == 0).all()))
+
+
+@pytest.mark.parametrize(
+    "kwargs,expected",
+    [
+        (dict(), dict(sdf=5, fwd_stash=1, bwd_stash=1)),
+        (dict(field="recompute"), dict(sdf=5, fwd=1, bwd=1)),
+        (dict(fused_rounds="on"), dict(round=5, sdf=5, fwd_stash=1, bwd_stash=1)),
+    ],
+)
+def test_training_step_launches_its_kernels(setup, kwargs, expected):
+    cfg = bench_config("bfloat16", device="cuda", **kwargs)
     scene = bench_scene(cfg, device="cuda")
-    step, state = bench_step(cfg, device="cuda", n_rays=64)
-    fns = (K.field_fwd_stash_kernel, K.field_bwd_stash_kernel, fused_sdf_kernel)
-    before = [f.launches for f in fns]
+    step, state = bench_step(cfg, device="cuda", n_rays=128)
+    fns = dict(sdf=fused_sdf_kernel, fwd_stash=K.field_fwd_stash_kernel, bwd_stash=K.field_bwd_stash_kernel,
+               fwd=F.field_fwd_kernel, bwd=F.field_bwd_kernel, round=R.fused_round_kernel)
+    before = {k: f.launches for k, f in fns.items()}
     state, metrics = step(state, scene, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     assert torch.isfinite(metrics["loss"])
-    assert all(f.launches > b for f, b in zip(fns, before))
+    assert {k: f.launches - before[k] for k, f in fns.items()} == {k: expected.get(k, 0) for k in fns}
