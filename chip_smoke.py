@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py           # the whole check (one card)
     python3 chip_smoke.py --quick   # build + kernel checks at small shapes only
+    python3 chip_smoke.py --only k1 # build fused_sdf.cu alone; K1's checks and timings
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -14,7 +15,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. hold each kernel against its plain PyTorch version on the same inputs
    and time both, beside one PyTorch library route to the same function:
    K1 (fused SDF) at the sampler's per-launch shape and at 1024 x 640
-   points, in bf16 and f32; K2-fwd (every output and the stash) and K2-bwd
+   points, in bf16 and f32, and in bf16 at 1, 127, 129 and 1000 points,
+   beside the scalar kernel it replaced, its exact-softplus variant and
+   its mma.sync variant; K2-fwd (every output and the stash) and K2-bwd
    (dx, dd, all 38 parameter gradients) at 4096 points in f32 and bf16 and
    at the main path's 100,352 points in bf16; K3-fwd and K3-bwd (the
    recompute pair) at the same sizes, against field_math and its autograd
@@ -65,6 +68,15 @@ PEAK_BYTES = 3.35e12
 # lands on the other side of a bf16 rounding step (one bf16 ulp is 2^-8
 # relative)
 TOL = {"float32": 1e-3, "bfloat16": 3e-2}
+# K1's tensor-core kernel against the scalar kernel it replaced, both scored
+# against the plain version on the same inputs: no more than this factor, or
+# one bf16 step of the largest entry where a handful of points makes both
+# errors a matter of chance
+K1_VS_SCALAR, K1_ERR_FLOOR = 1.5, 2.0 ** -8
+# sizes that leave a 128-point tile ragged
+K1_RAGGED = (1, 127, 129, 1000)
+# the bf16 kernels held and timed beside the one the sampler runs
+K1_VARIANTS = {"scalar": "scalar kernel", "wgmma_exact": "exact softplus", "mma_sync": "mma.sync"}
 # K3 against field_math: the forward on the scale above, f32 held tighter
 K3_FWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # K3-bwd against autograd of field_math, as ||kernel - plain|| / ||plain|| of
@@ -164,22 +176,36 @@ def weight_bytes(shapes, cd_bytes: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def check_k1(model, cfg, n_points, dtype, gen, reps, library=False):
+def _k1_inputs(model, cfg, n_points, dtype, gen):
     import torch
-    import torch.nn.functional as F
 
     from neat_tpu_torch.core.embedder import positional_encoding
-    from neat_tpu_torch.fields.mlp import _softplus100
-    from neat_tpu_torch.ops.fused_sdf import (
-        CANONICAL_SHAPES, _effective_weights, fused_sdf_kernel, fused_sdf_plain,
-    )
+    from neat_tpu_torch.ops.fused_sdf import _effective_weights
 
     cd = getattr(torch, dtype)
     pts = (torch.rand((n_points, 3), generator=gen, device="cuda") * 2 - 1) * 3.0
+    emb = positional_encoding(pts, cfg.implicit.multires).to(cd).contiguous()
+    ws, bs = _effective_weights(model.implicit, cfg.implicit, cd)
+    return emb, [w.contiguous() for w in ws], bs
+
+
+def check_k1(model, cfg, n_points, dtype, gen, reps, library=False, variants=False):
+    """K1 against fused_sdf_plain. ``variants`` (bf16): also the scalar
+    kernel it replaced, the tensor-core kernel with the exact softplus and
+    the one with its products by mma.sync on the same inputs, each against
+    plain; with ``reps`` they are timed in turns beside the plain version and
+    the library route."""
+    import torch
+    import torch.nn.functional as F
+
+    from neat_tpu_torch.fields.mlp import _softplus100
+    from neat_tpu_torch.ops.fused_sdf import (
+        CANONICAL_SHAPES, fused_sdf_kernel, fused_sdf_kernel_variant, fused_sdf_plain,
+    )
+
     with torch.no_grad():
-        emb = positional_encoding(pts, cfg.implicit.multires).to(cd).contiguous()
-        ws, bs = _effective_weights(model.implicit, cfg.implicit, cd)
-        ws = [w.contiguous() for w in ws]
+        emb, ws, bs = _k1_inputs(model, cfg, n_points, dtype, gen)
+        cd = emb.dtype
         got = fused_sdf_kernel(emb, ws, bs)
         ref = fused_sdf_plain(emb, ws, bs)
         torch.cuda.synchronize()
@@ -188,31 +214,76 @@ def check_k1(model, cfg, n_points, dtype, gen, reps, library=False):
             "max_abs_err": float((got - ref).abs().max()),
             "finite": bool(torch.isfinite(got).all()),
         }
+        timed = {"ms": lambda: fused_sdf_kernel(emb, ws, bs),
+                 "plain_ms": lambda: fused_sdf_plain(emb, ws, bs)}
+        if variants:
+            for v in K1_VARIANTS:
+                rec[f"{v}_err"] = rel_err(fused_sdf_kernel_variant(emb, ws, bs, v), ref)
+                timed[f"{v}_ms"] = lambda v=v: fused_sdf_kernel_variant(emb, ws, bs, v)
+        if library:
+            wl = [w.T.contiguous() for w in ws]  # (out, in) for F.linear
+            bl = [b.to(cd) for b in bs]
+
+            def lib():
+                h = emb
+                for l in range(4):
+                    h = _softplus100(F.linear(h, wl[l], bl[l]))
+                h = torch.cat([h, emb], dim=-1) * (1.0 / math.sqrt(2.0))
+                for l in range(4, 8):
+                    h = _softplus100(F.linear(h, wl[l], bl[l]))
+                return F.linear(h, wl[8], bl[8])
+
+            timed["library_ms"] = lib
         if reps:
-            rec["ms"] = time_ms(lambda: fused_sdf_kernel(emb, ws, bs), reps)
-            rec["plain_ms"] = time_ms(lambda: fused_sdf_plain(emb, ws, bs), reps)
-            if library:
-                wl = [w.T.contiguous() for w in ws]  # (out, in) for F.linear
-                bl = [b.to(cd) for b in bs]
-
-                def lib():
-                    h = emb
-                    for l in range(4):
-                        h = _softplus100(F.linear(h, wl[l], bl[l]))
-                    h = torch.cat([h, emb], dim=-1) * (1.0 / math.sqrt(2.0))
-                    for l in range(4, 8):
-                        h = _softplus100(F.linear(h, wl[l], bl[l]))
-                    return F.linear(h, wl[8], bl[8])
-
-                rec["library_ms"] = time_ms(lib, reps)
+            # in turns: every route once per round, two rounds, the mean of both
+            for _ in range(2):
+                for key, fn in timed.items():
+                    rec[key] = rec.get(key, 0.0) + time_ms(fn, reps // 2) / 2
             macs = k1_macs_per_point() * n_points
             nbytes = n_points * (39 * emb.element_size() + 4) + weight_bytes(
                 CANONICAL_SHAPES, emb.element_size()
             )
             rec["bound_ms"], rec["bound_by"] = bound_ms(macs, nbytes, dtype)
-    require(rec["finite"], f"K1 {dtype} n={n_points}: non-finite output")
-    require(rec["err"] <= TOL[dtype], f"K1 {dtype} n={n_points}: err {rec['err']:.3g} > {TOL[dtype]}")
+    what = f"K1 {dtype} n={n_points}"
+    require(rec["finite"], f"{what}: non-finite output")
+    require(rec["err"] <= TOL[dtype], f"{what}: err {rec['err']:.3g} > {TOL[dtype]}")
+    if variants:
+        for v in K1_VARIANTS:
+            require(rec[f"{v}_err"] <= TOL[dtype], f"{what}: {v} kernel err {rec[v + '_err']:.3g} > {TOL[dtype]}")
+        require(rec["err"] <= max(K1_VS_SCALAR * rec["scalar_err"], K1_ERR_FLOOR),
+                f"{what}: err {rec['err']:.3g} > {K1_VS_SCALAR} x the scalar kernel's {rec['scalar_err']:.3g}")
     return rec
+
+
+def print_k1(r):
+    line = f"K1 {r['dtype']} n={r['n']}: err {r['err']:.3g}"
+    if "scalar_err" in r:
+        line += " (" + ", ".join(f"{name} {r[v + '_err']:.3g}" for v, name in K1_VARIANTS.items()) + ")"
+    if "ms" in r:
+        line += f", {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}"
+        for key, name in (*((v + "_ms", name) for v, name in K1_VARIANTS.items()), ("library_ms", "library")):
+            if key in r:
+                line += f", {name} {r[key]:.3f}"
+        line += f"; bound {r['bound_ms']:.3f} by {r['bound_by']})"
+    print(line, flush=True)
+
+
+def k1_phase(model, cfg, gen, quick):
+    """Every K1 check: ragged sizes around the 128-point tile, the sampler's
+    per-launch shape (timed, >= 20 launches a route) and 1024 x 640 points."""
+    recs = []
+    if quick:
+        for dt in ("float32", "bfloat16"):
+            recs.append(check_k1(model, cfg, 1000, dt, gen, reps=0, variants=dt == "bfloat16"))
+        return recs
+    k1_launch = 1024 * cfg.sampler.n_samples_eval  # one sampler round
+    recs.append(check_k1(model, cfg, k1_launch, "bfloat16", gen, reps=40, library=True, variants=True))
+    for n in K1_RAGGED:
+        recs.append(check_k1(model, cfg, n, "bfloat16", gen, reps=0, variants=True))
+    recs.append(check_k1(model, cfg, 1024 * 640, "bfloat16", gen, reps=0, variants=True))
+    recs.append(check_k1(model, cfg, k1_launch, "float32", gen, reps=6))
+    recs.append(check_k1(model, cfg, 1024 * 640, "float32", gen, reps=0))
+    return recs
 
 
 def _field_inputs(n, gen):
@@ -750,10 +821,15 @@ def eval_forward(n_rays):
 
 # ---------------------------------------------------------------------------
 
+# --only <kernel>: the one library that kernel lives in
+ONLY = {"k1": ("fused_sdf",)}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true", help="build + small kernel checks only")
+    ap.add_argument("--only", choices=("k1",), default=None,
+                    help="build one library and run its kernel's checks and timings alone")
     ap.add_argument("--profile", action="store_true",
                     help="also trace 3 steps of each path with torch.profiler "
                          "(build/chip_smoke/profile_<path>.txt)")
@@ -778,34 +854,39 @@ def main() -> int:
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(ONLY[args.only] if args.only else _build.SOURCES)
     report["build_s"] = time.perf_counter() - t0
     report["ptxas"] = logs
     print(f"build: {report['build_s']:.1f} s ({', '.join(sorted(logs)) or 'cached'})", flush=True)
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "registers" in line or "spill" in line or (args.only and "Compiling entry" in line):
+                print(f"  ptxas {name}: {line.strip()[:160]}")
 
     cfg = bench_config("bfloat16", device="cuda")
     model = init_neat(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1, k2, k3, k4 = [], [], [], []
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if args.only == "k1":
+        report["k1"] = k1_phase(model, cfg, gen, args.quick)
+        for r in report["k1"]:
+            print_k1(r)
+        with open(os.path.join(OUT_DIR, "chip_smoke_k1.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(card, flush=True)
+        return 0
+    k1 = k1_phase(model, cfg, gen, args.quick)
+    k2, k3, k4 = [], [], []
     rounds = sampler_rounds(model, cfg, 128 if args.quick else 1024, gen)
     require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(cfg.sampler.max_total_iters)],
             "the sampler's rounds did not reach the round kernel at 128 ... 640 samples")
     if args.quick:
         for dt in ("float32", "bfloat16"):
-            k1.append(check_k1(model, cfg, 1000, dt, gen, reps=0))
             k2.append(check_k2(model, cfg, 1000, dt, gen, reps=0))
             k3.append(check_k3(model, cfg, 1000, dt, gen, reps=0, self_noise=True))
         for data in (rounds[0], rounds[-1]):
             k4.extend(check_k4(data, cfg.sampler, refine, reps=0) for refine in (True, False))
     else:
-        k1_launch = 1024 * cfg.sampler.n_samples_eval  # one sampler round
-        for dt in ("bfloat16", "float32"):
-            k1.append(check_k1(model, cfg, k1_launch, dt, gen, reps=5, library=dt == "bfloat16"))
-            k1.append(check_k1(model, cfg, 1024 * 640, dt, gen, reps=0))
         for dt in ("float32", "bfloat16"):
             k2.append(check_k2(model, cfg, 4096, dt, gen, reps=0))
             k3.append(check_k3(model, cfg, 4096, dt, gen, reps=0, self_noise=True))
@@ -818,8 +899,7 @@ def main() -> int:
         k4.append(check_k4(rounds[-1], cfg.sampler, False, reps=20))  # the last round, as the sampler runs it
         k4.append(check_k4(rounds[-1], cfg.sampler, True, reps=20))
     for r in k1:
-        print(f"K1 {r['dtype']} n={r['n']}: err {r['err']:.3g}"
-              + (f", {r['ms']:.3f} ms (plain {r['plain_ms']:.3f})" if "ms" in r else ""), flush=True)
+        print_k1(r)
     for r in k2:
         print(f"K2 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])} bwd {json.dumps(r['bwd_err'])}"
               + (f", fwd {r['fwd_ms']:.3f} ms, bwd {r['bwd_ms']:.3f} ms" if "fwd_ms" in r else ""),
@@ -839,7 +919,6 @@ def main() -> int:
               f"{r['nan_rows']} rows with a NaN pdf"
               + (f", {r['ms']:.4f} ms (plain {r['plain_ms']:.3f})" if "ms" in r else ""), flush=True)
     report.update(k1=k1, k2=k2, k3=k3, k4=k4)
-    os.makedirs(OUT_DIR, exist_ok=True)
     out_path = os.path.join(OUT_DIR, "chip_smoke.json")
 
     if not args.quick:

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/kernels/lib<name>.so`` at the root
 of the checkout, and loaded with ``ctypes``. A library is rebuilt when it is
-missing or older than its sources. ``build_all`` starts one ``nvcc`` per
-stale source, all at once, and waits for them.
+missing or older than its own ``.cu`` or any header that source reaches
+through ``#include "..."`` lines (followed from header to header), so an
+edit to a header rebuilds only the sources that include it. ``build_all``
+starts one ``nvcc`` per stale source, all at once, and waits for them.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -13,9 +15,10 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -44,11 +47,32 @@ def _so_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
-def _stale(name: str) -> bool:
-    so = _so_path(name)
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def dependencies(source: Path) -> List[Path]:
+    """``source`` and every file it reaches through ``#include "..."`` lines,
+    each resolved beside the file that names it (system headers in ``<...>``
+    are not followed). A quoted header that does not exist is left out: the
+    compiler reports it."""
+    source = Path(source)
+    seen: List[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop()
+        if path in seen or (path != source and not path.exists()):
+            continue
+        seen.append(path)
+        todo.extend(path.parent / inc for inc in _INCLUDE.findall(path.read_text()))
+    return seen
+
+
+def _stale(name: str, csrc: Path = None, build_dir: Path = None) -> bool:
+    """Whether ``lib<name>.so`` is missing or older than one of its sources."""
+    so = (BUILD_DIR if build_dir is None else build_dir) / f"lib{name}.so"
     if not so.exists():
         return True
-    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    deps = dependencies((CSRC if csrc is None else csrc) / f"{name}.cu")
     return so.stat().st_mtime < max(d.stat().st_mtime for d in deps)
 
 

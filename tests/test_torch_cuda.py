@@ -25,7 +25,9 @@ from neat_tpu_torch.ops import fused_field as F
 from neat_tpu_torch.ops import fused_field_stash as K
 from neat_tpu_torch.ops import fused_round as R
 from neat_tpu_torch.ops.fused_field import _flatten_eff
-from neat_tpu_torch.ops.fused_sdf import _effective_weights, fused_sdf_kernel, fused_sdf_plain
+from neat_tpu_torch.ops.fused_sdf import (
+    _effective_weights, fused_sdf_kernel, fused_sdf_kernel_variant, fused_sdf_plain,
+)
 from neat_tpu_torch.core.embedder import positional_encoding
 from neat_tpu_torch.utils.benchscene import bench_config, bench_scene, bench_step
 
@@ -47,15 +49,22 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max()) / max(1e-12, float(b.float().abs().max()))
 
 
+@pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 32- and 128-point tiles
 @pytest.mark.parametrize("cd", DTYPES)
-def test_k1_kernel_matches_plain(setup, cd):
+def test_k1_kernel_matches_plain(setup, cd, n_points):
     cfg, model = setup
-    pts = (torch.rand((1000, 3), device="cuda") * 2 - 1) * 3.0  # a ragged last tile
+    pts = (torch.rand((n_points, 3), device="cuda") * 2 - 1) * 3.0
     with torch.no_grad():
         emb = positional_encoding(pts, 6).to(cd).contiguous()
         ws, bs = _effective_weights(model.implicit, cfg.implicit, cd)
         ws = [w.contiguous() for w in ws]
-        assert _err(fused_sdf_kernel(emb, ws, bs), fused_sdf_plain(emb, ws, bs)) < TOL[cd]
+        ref = fused_sdf_plain(emb, ws, bs)
+        got = fused_sdf_kernel(emb, ws, bs)
+        assert got.shape == (n_points,) and bool(torch.isfinite(got).all())
+        assert _err(got, ref) < TOL[cd]
+        if cd == torch.bfloat16:  # the scalar kernel and the tensor-core variants, same inputs
+            for variant in ("scalar", "wgmma_exact", "mma_sync"):
+                assert _err(fused_sdf_kernel_variant(emb, ws, bs, variant), ref) < TOL[cd]
 
 
 @pytest.mark.parametrize("cd", DTYPES)
