@@ -116,7 +116,7 @@ def masked_assignment(
         col_mask = torch.ones(cost.shape[1], dtype=torch.bool, device=cost.device)
     if method != "auction":
         raise NotImplementedError(
-            f"assignment method {method!r} is not ported yet (ROADMAP.md §1 item 4)"
+            f"assignment method {method!r} is not ported yet (ROADMAP.md §1, assignment `callback` mode)"
         )
     col, valid, _ = auction_assignment(cost, row_mask.bool(), col_mask.bool())
     return col, valid

@@ -52,7 +52,7 @@ def neat_loss(outputs: Dict[str, torch.Tensor], ground_truth: Dict[str, torch.Te
     """Total loss and its components. ground_truth: rgb (R, 3), lines2d
     (R, 5) [x1 y1 x2 y2 score]."""
     if cfg.depth_weight > 0.0:
-        raise NotImplementedError("the depth loss terms are not ported yet (ROADMAP.md §1 item 13)")
+        raise NotImplementedError("the depth loss terms are not ported yet (ROADMAP.md §1, DTU path)")
     stats: Dict[str, torch.Tensor] = {}
     ref = outputs["rgb_values"]
     zero = torch.zeros((), dtype=ref.dtype, device=ref.device)

@@ -60,7 +60,7 @@ class NeatConfig:
     K1, ``use_pallas_field`` -> K2 (``pallas_field_backward='stash'``) or
     K3 (``'recompute'``).
     Only the default ``neat`` variant is ported; other variant flags raise
-    ``NotImplementedError`` (ROADMAP.md §1 item 13)."""
+    ``NotImplementedError`` (ROADMAP.md §1, variants)."""
 
     feature_vector_size: int = 256
     scene_bounding_sphere: float = 3.0
@@ -133,7 +133,7 @@ def check_ported(cfg: NeatConfig) -> None:
         if getattr(cfg, name) != default:
             raise NotImplementedError(
                 f"NeatConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                "(ROADMAP.md §1 item 13); only the default neat variant runs"
+                "(ROADMAP.md §1, variants); only the default neat variant runs"
             )
     if cfg.pallas_field_backward not in ("stash", "recompute"):
         raise ValueError(
