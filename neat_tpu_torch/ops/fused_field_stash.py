@@ -62,8 +62,9 @@ import math
 
 import torch
 
-from ..fields.mlp import ImplicitNetConfig, RenderNetConfig, _skip_concat
+from ..fields.mlp import ImplicitNetConfig, RenderNetConfig, _skip_concat, _softplus100
 from . import _build
+from . import fused_sdf as K1
 from .fused_field import (
     _DTYPES,
     N_HEAD_LAYERS,
@@ -341,6 +342,206 @@ def _unpack_res(stash_cd, stash_f32, rgb, grads, icfg, rcfg):
     ne = icfg.layer_dims()[0]
     e, z8 = stash_f32[..., :ne], stash_f32[..., ne:]
     return (e, tuple(i_post), tuple(i_r), tuple(i_a), z8, rgb, grads)
+
+
+# ---------------------------------------------------------------------------
+# the packed operands of the bf16 tensor-core forward (csrc/field_fwd_mma.cu)
+# ---------------------------------------------------------------------------
+
+# csrc/field_fwd_mma.cu hard-codes the same numbers under the same names.
+# Panels are K1's (256 rows x 64 k, swizzled, zero-padded; ops/fused_sdf.py).
+# (part, layer, first k row) of each panel, in the order a tile consumes them:
+# "fwd" panels hold W_l[k0 + k, n] at row n (K1's), "feat" panels layer 8's
+# feature columns W_8[k0 + k, 1 + n], "sweep" panels the transposed product's
+# W_l[n, k0 + k] at row n, "lead" and "hfeat" panels a head's first layer
+# split at its 256 feature rows: the leading inputs W_l[k, n] (k < 33 or 9)
+# and the feature rows W_l[n_lead + k0 + k, n].
+_K4 = (0, 64, 128, 192)
+FIELD_PANELS = (
+    tuple(("fwd", l, k0) for l, k0 in K1.PANELS)
+    + tuple(("feat", 8, k0) for k0 in _K4)
+    + tuple(("sweep", l, k0) for l in range(7, -1, -1) for k0 in _K4)
+    + tuple(
+        p
+        for l0 in (9, 14)
+        for p in (("lead", l0, 0),) + tuple(("hfeat", l0, k0) for k0 in _K4)
+        + tuple(("fwd", l, k0) for l in range(l0 + 1, l0 + 4) for k0 in _K4)
+    )
+)
+N_FIELD_PANELS = len(FIELD_PANELS)  # 99
+# leading inputs of a head's first layer: [x, PE4(d), grads] and [x, d, grads]
+N_LEAD = {9: 33, 14: 9}
+# the weights: pack_sdf_weights' buffer (K1's 29 panels and W_8's sdf
+# column), the 70 further panels, then W_13 and W_18 as rows of 256
+SDF_W_TOTAL = K1.W_TOTAL
+W13_OFF = SDF_W_TOTAL + (N_FIELD_PANELS - K1.N_PANELS) * K1.PANEL_ELEMS
+W18_OFF = W13_OFF + 3 * 256
+FIELD_W_TOTAL = W18_OFF + 6 * 256
+# the f32 biases, 256 a slot: layer l < 8 in slot l and b_8's sdf entry at
+# 2048 (pack_sdf_weights' buffer), then b_8's features, b_9 .. b_13, b_14 .. b_18
+B8F_OFF = 9 * 256
+B_SLOT = {9: 10, 10: 11, 11: 12, 12: 13, 13: 14, 14: 15, 15: 16, 16: 17, 17: 18, 18: 19}
+FIELD_B_TOTAL = 20 * 256
+
+
+def _field_panel(ws, part, l, k0):
+    """One panel (256 rows x 64 k, not yet swizzled) of the (in, out) matrices ws."""
+    w = ws[l]
+    p = w.new_zeros((K1.PANEL_ROWS, K1.PANEL_K))
+    if part == "feat":
+        blk = w[k0 : k0 + 64, 1:].T
+    elif part == "sweep":
+        blk = w[:, k0 : k0 + 64]
+    elif part == "lead":
+        blk = w[: N_LEAD[l]].T
+    elif part == "hfeat":
+        blk = w[N_LEAD[l] + k0 : N_LEAD[l] + k0 + 64].T
+    else:
+        blk = w[k0 : k0 + 64].T
+    p[: blk.shape[0], : blk.shape[1]] = blk
+    return p
+
+
+def pack_field_weights(flat_eff):
+    """The 19 (in, out) matrices and biases of ``flat_eff`` as the tensor-core
+    forward reads them: (FIELD_W_TOTAL,) in the matrices' dtype and
+    (FIELD_B_TOTAL,) in the biases' (the kernel takes bf16 and f32). The weights are the shared-memory image of every
+    panel of FIELD_PANELS in order (the first 29 and W_8's sdf column are
+    ``pack_sdf_weights``' own buffer), then W_13 and W_18 transposed."""
+    ws = [w.detach() for w in flat_eff[0::2]]
+    bs = [b.detach().reshape(-1) for b in flat_eff[1::2]]
+    w_sdf, b_sdf = K1.pack_sdf_weights(ws[:8] + [ws[8][:, :1]], bs[:8] + [bs[8][:1]])
+    rest = torch.stack([_field_panel(ws, *p) for p in FIELD_PANELS[K1.N_PANELS :]])
+    w = torch.cat([w_sdf, K1._swizzle(rest).reshape(-1), ws[13].T.reshape(-1), ws[18].T.reshape(-1)])
+    b = torch.zeros((FIELD_B_TOTAL,), dtype=b_sdf.dtype, device=b_sdf.device)
+    b[: K1.B_TOTAL] = b_sdf
+    b[B8F_OFF : B8F_OFF + 256] = bs[8][1:]
+    for l, slot in B_SLOT.items():
+        b[256 * slot : 256 * slot + bs[l].shape[0]] = bs[l]
+    return w, b
+
+
+_FIELD_GATHER = {}  # device -> (weight positions, bias positions), built once
+
+
+def pack_field_weights_gather(flat_eff, cd):
+    """``pack_field_weights`` in two gathers, as the wrapper runs it on every
+    launch, the matrices cast to ``cd`` (``pack_sdf_weights_gather``'s method:
+    the layout applied once to matrices that hold their own position in the
+    concatenated operands)."""
+    from .fused_field import CANONICAL_SHAPES
+
+    dev = flat_eff[0].device
+    if dev not in _FIELD_GATHER:
+        w_sizes = [i * o for i, o in CANONICAL_SHAPES]
+        b_sizes = [o for _, o in CANONICAL_SHAPES]
+        w_pos = torch.arange(1, 1 + sum(w_sizes)).split(w_sizes)
+        b_pos = torch.arange(1, 1 + sum(b_sizes)).split(b_sizes)
+        pos = []
+        for wp, bp, sh in zip(w_pos, b_pos, CANONICAL_SHAPES):
+            pos += [wp.reshape(sh), bp[None, :]]
+        w_at, b_at = pack_field_weights(pos)
+        _FIELD_GATHER[dev] = (w_at.to(dev), b_at.to(dev))
+    w_at, b_at = _FIELD_GATHER[dev]
+    ws, bs = flat_eff[0::2], flat_eff[1::2]
+    w = torch.cat([ws[0].new_zeros(1, dtype=cd), *(x.detach().to(cd).reshape(-1) for x in ws)])[w_at]
+    b = torch.cat([bs[0].new_zeros(1, dtype=torch.float32), *(x.detach().float().reshape(-1) for x in bs)])[b_at]
+    return w, b
+
+
+def unpack_field_weights(w, b, keep_pads: bool = False):
+    """The inverse of ``pack_field_weights``: (flat, sweep). ``flat`` is the
+    38 operands (W_l (in, out), b_l (1, out)) read from the forward panels;
+    ``sweep[l]`` (l < 8) is the (out, in) matrix W_l^T read from the
+    transposed panels. With ``keep_pads`` the matrices keep the widths the
+    kernel multiplies: K 39 -> 64 (layer 0), N 217 -> 256 (layer 3), the
+    heads' first layers as [leading rows padded to 64, 256 feature rows], and
+    every sweep matrix 256 x 256."""
+    from .fused_field import CANONICAL_SHAPES
+
+    pe = K1.PANEL_ELEMS
+    sdf_ws, sdf_bs = K1.unpack_sdf_weights(w[:SDF_W_TOTAL], b[: K1.B_TOTAL], keep_pads=True)
+    rest = K1._swizzle(w[SDF_W_TOTAL:W13_OFF].reshape(-1, K1.PANEL_ROWS, K1.PANEL_K))
+    by = {}  # (part, layer) -> [panels in k0 order]
+    for i, (part, l, _) in enumerate(FIELD_PANELS[K1.N_PANELS :]):
+        by.setdefault((part, l), []).append(rest[i])
+    cols = lambda ps: torch.cat([p.T for p in ps], dim=0)  # (64 * len, 256): k rows
+    ws = sdf_ws[:8] + [torch.cat([sdf_ws[8], cols(by["feat", 8])], dim=1)]
+    bs = sdf_bs[:8] + [torch.cat([sdf_bs[8], b[B8F_OFF : B8F_OFF + 256]])]
+    for l0 in (9, 14):
+        ws.append(torch.cat([cols(by["lead", l0]), cols(by["hfeat", l0])], dim=0))  # (320, 256)
+        ws += [cols(by["fwd", l]) for l in range(l0 + 1, l0 + 4)]
+        out = w[W13_OFF:W18_OFF].reshape(3, 256) if l0 == 9 else w[W18_OFF:FIELD_W_TOTAL].reshape(6, 256)
+        ws.append(out.T.contiguous())
+    for l in range(9, 19):
+        n_out = CANONICAL_SHAPES[l][1]
+        bs.append(b[256 * B_SLOT[l] : 256 * B_SLOT[l] + (256 if n_out == 256 else n_out)])
+    # (out 256, in 256), laid out as the transpose of an (in, out) matrix
+    sweep = [cols(by["sweep", l]).T.contiguous().T for l in range(8)]
+    if not keep_pads:
+        for l0 in (9, 14):
+            ws[l0] = torch.cat([ws[l0][: N_LEAD[l0]], ws[l0][64:]])
+        ws = [x[:i, :o] for x, (i, o) in zip(ws, CANONICAL_SHAPES)]
+        bs = [x[:o] for x, (_, o) in zip(bs, CANONICAL_SHAPES)]
+        sweep = [x[:o, :i] for x, (i, o) in zip(sweep, CANONICAL_SHAPES)]
+    flat = []
+    for wl, bl in zip(ws, bs):
+        flat += [wl, bl[None, :]]
+    return tuple(flat), sweep
+
+
+def field_fwd_plain_packed(x, d, w, b, icfg: ImplicitNetConfig, cd):
+    """``field_fwd_res`` on the tensor-core forward's own operands: the
+    padded matrices read back from the packed buffers, the embedding
+    zero-padded to a panel's 64 columns, layer 3's pad columns dropped at the
+    skip, the gradient sweep through the transposed panels (zero-padded
+    cotangents), each head's first layer on [leading inputs padded to 64,
+    features]. The pads are zeros, so this returns ``field_fwd_res``'s
+    outputs and residuals (canonical widths, PE4 view encoding)."""
+    flat, sweep = unpack_field_weights(w, b, keep_pads=True)
+    iw, rw, aw = _unflatten_eff(flat)
+    el = torch.promote_types(torch.float32, cd)
+    pad = lambda t, width: torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+    e = _pe(x, icfg.multires)
+    ne = e.shape[-1]
+    e_cd = e.to(cd)
+    h, i_post = pad(e_cd, K1.PANEL_K), []
+    for l in range(N_IMPLICIT_LAYERS - 1):
+        if l == 4:
+            h = _skip_concat(h, e_cd)
+        z = _mm(h, iw[l][0], cd, el) + iw[l][1]
+        # layer 3's pad columns go before the activation: on the CPU an
+        # elementwise op's last bits depend on where a row sits in memory
+        h = _softplus100(z[..., : 256 - ne].contiguous() if l == 3 else z).to(cd)
+        i_post.append(h)
+    z8 = _mm(h, iw[8][0], cd, el) + iw[8][1]
+    sdf_raw, feats = z8[..., :1], z8[..., 1:]
+    norm_x, sphere, m_raw, m_sph = _sphere_terms(x, sdf_raw, icfg)
+    sdf = torch.minimum(sdf_raw, sphere) if sphere is not None else sdf_raw
+
+    s = [1.0 - torch.exp(-100.0 * ip.to(el)) for ip in i_post]
+    v = iw[8][0][:, 0].to(el) * s[7]  # the one-hot seed's transposed product is W_8's sdf column
+    cot_e = torch.zeros_like(e)
+    for l in range(N_IMPLICIT_LAYERS - 2, -1, -1):
+        u = _mm(pad(v, 256), sweep[l], cd, el)
+        if l == 0:
+            cot_e = cot_e + u[..., :ne]
+        elif l == 4:
+            cot_e = cot_e + u[..., -ne:] * INV_SQRT2
+            v = u[..., :-ne] * INV_SQRT2 * s[l - 1]
+        else:
+            v = u * s[l - 1]
+    g_mlp = _pe_transpose(cot_e, e, x, icfg.multires)
+    grads = m_raw * g_mlp + m_sph * (-icfg.sphere_scale * x / norm_x) if norm_x is not None else g_mlp
+
+    lead_r = torch.cat([x, _pe(d, 4), grads], dim=-1)
+    lead_a = torch.cat([x, d, grads], dim=-1)
+    zr, i_r = _head(rw, torch.cat([pad(lead_r, K1.PANEL_K), feats], dim=-1), cd, el)
+    att, i_a = _head(aw, torch.cat([pad(lead_a, K1.PANEL_K), feats], dim=-1), cd, el)
+    rgb = torch.sigmoid(zr)
+    res = (e, tuple(i_post), tuple(i_r), tuple(i_a), z8, rgb, grads)
+    return (sdf, grads, rgb, att), res
 
 
 # ---------------------------------------------------------------------------
