@@ -300,9 +300,7 @@ def _n_sm(t) -> int:
     return torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
-def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
-    """Launch K3-fwd: -> sdf (N,1), grads (N,3), rgb (N,3), att (N,6) f32.
-    Nothing else reaches device memory but a per-block scratch."""
+def _fwd_launch(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
     _check_operands(flat_eff, x, d, cd)
     n = x.shape[0]
     kw = dict(dtype=torch.float32, device=x.device)
@@ -310,20 +308,63 @@ def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
     if n == 0:
         return outs
     n_sm = _n_sm(x)
-    n_blocks, _, fwd_cd, _, _ = _layout(n, n_sm)
-    scratch = torch.empty((n_blocks, fwd_cd), dtype=cd, device=x.device)
-    w_all, wt_all, b_all = _pack_weights(flat_eff, cd)
     P = _build.ptr
-    err = _entry("fused_field", "field_fwd", cd, 10, 2)(
-        P(x), P(d), P(w_all), P(wt_all), P(b_all), *(P(o) for o in outs), P(scratch),
-        n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
-    )
-    _build.check(err, "fused field recompute forward kernel launch")
-    field_fwd_kernel.launches += 1
+    if variant == "mma":
+        from .fused_field_stash import _mma_entry, pack_field_weights_gather
+
+        n_blocks, s_cd, s_f32 = _mma_layout(n, n_sm)
+        scratch_cd = torch.empty((n_blocks, s_cd), dtype=cd, device=x.device)
+        scratch_f32 = torch.empty((n_blocks, s_f32), **kw)
+        w, b = pack_field_weights_gather(flat_eff, cd)
+        err = _mma_entry("field_fwd_mma_primal")(
+            P(x), P(d), P(w), P(b), *(P(o) for o in outs), P(scratch_cd), P(scratch_f32),
+            n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+        )
+    else:
+        n_blocks, _, fwd_cd, _, _ = _layout(n, n_sm)
+        scratch = torch.empty((n_blocks, fwd_cd), dtype=cd, device=x.device)
+        w_all, wt_all, b_all = _pack_weights(flat_eff, cd)
+        err = _entry("fused_field", "field_fwd", cd, 10, 2)(
+            P(x), P(d), P(w_all), P(wt_all), P(b_all), *(P(o) for o in outs), P(scratch),
+            n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+        )
+    _build.check(err, f"fused field recompute forward kernel launch ({variant})")
+    return outs
+
+
+def _mma_layout(n: int, max_blocks: int):
+    """(blocks, per-block scratch in cd values, in f32 values) of the
+    tensor-core forward for n points, as the C side decides them."""
+    fn = _build.load("field_fwd_mma").field_fwd_mma_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.restype = None
+    blocks, s_cd, s_f32 = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    fn(n, max_blocks, ctypes.byref(blocks), ctypes.byref(s_cd), ctypes.byref(s_f32))
+    return blocks.value, s_cd.value, s_f32.value
+
+
+def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
+    """Launch K3-fwd: -> sdf (N,1), grads (N,3), rgb (N,3), att (N,6) f32.
+    Nothing else reaches device memory but a per-block scratch. bf16 runs
+    the tensor-core kernel (``csrc/field_fwd_mma.cu``), f32 the scalar one."""
+    outs = _fwd_launch(flat_eff, x, d, icfg, cd, "mma" if cd == torch.bfloat16 else "scalar")
+    if x.shape[0]:
+        field_fwd_kernel.launches += 1
     return outs
 
 
 field_fwd_kernel.launches = 0
+
+
+def field_fwd_kernel_variant(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
+    """K3-fwd by the tensor-core (``"mma"``) or the scalar (``"scalar"``)
+    kernel on bf16 CUDA tensors, for holding them against each other on the
+    card; nothing on the model's path calls it and it is not counted."""
+    if cd != torch.bfloat16:
+        raise TypeError("the forward variants are bf16")
+    if variant not in ("mma", "scalar"):
+        raise ValueError(f"no forward variant {variant!r}")
+    return _fwd_launch(flat_eff, x, d, icfg, cd, variant)
 
 
 def field_bwd_kernel(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd):

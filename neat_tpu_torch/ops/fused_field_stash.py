@@ -552,9 +552,7 @@ W_CD = 4057  # 7 x 256 + 217 implicit post-activations + 2 x 4 x 256 head ones
 W_F32 = 296  # embedding (39) + z8 (257)
 
 
-def field_fwd_stash_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
-    """Launch K2-fwd: -> sdf (N,1), grads (N,3), rgb (N,3), att (N,6) f32,
-    stash_cd (N, 4057) in ``cd``, stash_f32 (N, 296)."""
+def _fwd_stash_launch(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
     _check_operands(flat_eff, x, d, cd)
     n = x.shape[0]
     kw = dict(device=x.device)
@@ -566,19 +564,58 @@ def field_fwd_stash_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
     sf32 = torch.empty((n, W_F32), dtype=torch.float32, **kw)
     if n == 0:
         return sdf, grads, rgb, att, scd, sf32
-    w_all, wt_all, b_all = _pack_weights(flat_eff, cd)
     P = _build.ptr
-    err = _entry("fused_field_stash", "field_fwd_stash", cd, 11, 1)(
-        P(x), P(d), P(w_all), P(wt_all), P(b_all),
-        P(sdf), P(grads), P(rgb), P(att), P(scd), P(sf32), n,
-        icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
-    )
-    _build.check(err, "fused field forward kernel launch")
-    field_fwd_stash_kernel.launches += 1
+    if variant == "mma":
+        w, b = pack_field_weights_gather(flat_eff, cd)
+        err = _mma_entry("field_fwd_mma_stash")(
+            P(x), P(d), P(w), P(b), P(sdf), P(grads), P(rgb), P(att), P(scd), P(sf32), n, _n_sm(x),
+            icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+        )
+    else:
+        w_all, wt_all, b_all = _pack_weights(flat_eff, cd)
+        err = _entry("fused_field_stash", "field_fwd_stash", cd, 11, 1)(
+            P(x), P(d), P(w_all), P(wt_all), P(b_all),
+            P(sdf), P(grads), P(rgb), P(att), P(scd), P(sf32), n,
+            icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+        )
+    _build.check(err, f"fused field forward kernel launch ({variant})")
     return sdf, grads, rgb, att, scd, sf32
 
 
+def field_fwd_stash_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
+    """Launch K2-fwd: -> sdf (N,1), grads (N,3), rgb (N,3), att (N,6) f32,
+    stash_cd (N, 4057) in ``cd``, stash_f32 (N, 296). bf16 runs the
+    tensor-core kernel (``csrc/field_fwd_mma.cu``), f32 the scalar one."""
+    out = _fwd_stash_launch(flat_eff, x, d, icfg, cd, "mma" if cd == torch.bfloat16 else "scalar")
+    if x.shape[0]:
+        field_fwd_stash_kernel.launches += 1
+    return out
+
+
 field_fwd_stash_kernel.launches = 0
+
+# the bf16 forwards: the tensor-core kernel the main path runs, the scalar one f32 still runs
+FWD_VARIANTS = ("mma", "scalar")
+
+
+def field_fwd_stash_kernel_variant(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
+    """K2-fwd by one of ``FWD_VARIANTS`` on bf16 CUDA tensors, for holding the
+    kernels against each other on the card; nothing on the model's path
+    calls it and it is not counted."""
+    if cd != torch.bfloat16:
+        raise TypeError("the forward variants are bf16")
+    if variant not in FWD_VARIANTS:
+        raise ValueError(f"no forward variant {variant!r}")
+    return _fwd_stash_launch(flat_eff, x, d, icfg, cd, variant)
+
+
+def _mma_entry(name: str):
+    """The C entry ``name`` of ``csrc/field_fwd_mma.cu``: ten pointers, n,
+    the block cap, the sphere radius and scale, the stream."""
+    fn = getattr(_build.load("field_fwd_mma"), name)
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _bwd_layout(n: int, max_blocks: int):

@@ -111,7 +111,9 @@ def test_k3_kernels_match_plain_and_k2(setup, cd):
         ref = F.field_math(flat, x, d, icfg, rcfg, cd)
         k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
         deff, dx, dd = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
-        deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
+        # K3-bwd re-runs the scalar forward tile: K2-bwd replays the scalar K2-fwd's stash
+        k2s = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar") if cd == torch.bfloat16 else k2
+        deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2s[4], k2s[5], k2s[2], k2s[1], cots, icfg, cd)
     fwd_tol = 1e-5 if cd == torch.float32 else 3e-2
     for a, b, c in zip(got, ref, k2):
         assert _err(a, b) < fwd_tol and _err(a, c) <= 1e-6
@@ -122,6 +124,38 @@ def test_k3_kernels_match_plain_and_k2(setup, cd):
     l2_tol = 5e-3 if cd == torch.float32 else 0.15
     for a, b in zip((*deff, dx, dd), plain):
         assert float((a - b).norm()) <= l2_tol * float(b.norm())
+
+
+@pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 128-point tile
+def test_tensor_core_field_forwards_match_plain(setup, n_points, capsys):
+    """bf16 K2-fwd and K3-fwd (the tensor-core kernel) and their scalar
+    variants against the plain versions; K3-fwd equals K2-fwd (same code).
+    Stash entries more than one bf16 step off are reported."""
+    cfg, model = setup
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    cd = torch.bfloat16
+    x, d, _ = _field_inputs(n_points)
+    flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+    with torch.no_grad():
+        out, res = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
+        ref = (*out, *K._pack_res(res))
+        got = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
+        scalar = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar")
+        k3 = F.field_fwd_kernel(flat, x, d, icfg, cd)
+        k3_ref = F.field_math(flat, x, d, icfg, rcfg, cd)
+        k3_scalar = F.field_fwd_kernel_variant(flat, x, d, icfg, cd, "scalar")
+    for a, s, b in zip(got, scalar, ref):
+        assert a.shape == b.shape and bool(torch.isfinite(a.float()).all())
+        assert _err(a, b) < TOL[cd] and _err(s, b) < TOL[cd]
+    for a, s, b, c in zip(k3, k3_scalar, k3_ref, got):
+        assert _err(a, b) < TOL[cd] and _err(s, b) < TOL[cd]
+        assert torch.equal(a, c)
+    with capsys.disabled():
+        for name, a, b in zip(("stash_cd", "stash_f32"), got[4:], ref[4:]):
+            a, b = a.float(), b.float()
+            step = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(2.0 ** -126))) - 7)
+            print(f"\nn={n_points} {name}: {int(((a - b).abs() > step).sum())} of {b.numel()} "
+                  "entries more than one bf16 step off")
 
 
 @pytest.mark.parametrize("refine", [True, False])
@@ -150,6 +184,8 @@ def test_k4_kernel_matches_plain(setup, refine):
     ],
 )
 def test_training_step_launches_its_kernels(setup, kwargs, expected):
+    # the bf16 step's K2-fwd and K3-fwd launch the tensor-core forward;
+    # the counters stay on the wrappers the model calls
     cfg = bench_config("bfloat16", device="cuda", **kwargs)
     scene = bench_scene(cfg, device="cuda")
     step, state = bench_step(cfg, device="cuda", n_rays=128)

@@ -163,8 +163,38 @@ def test_stale_marks_exactly_the_sources_that_include_a_touched_header(tmp_path,
 
 
 def test_only_fused_sdf_depends_on_the_mma_header():
+    """The tensor-core kernels (K1 and the field forward) alone include
+    ``mma_tile.cuh``; the field forward does not include the scalar tile."""
     reach = {name: {p.name for p in _build.dependencies(_build.CSRC / f"{name}.cu")} for name in _build.SOURCES}
     assert reach["fused_sdf"] == {"fused_sdf.cu", "common.cuh", "mma_tile.cuh"}
-    assert [name for name in _build.SOURCES if "mma_tile.cuh" in reach[name]] == ["fused_sdf"]
+    assert reach["field_fwd_mma"] == {"field_fwd_mma.cu", "common.cuh", "mma_tile.cuh"}
+    assert [name for name in _build.SOURCES if "mma_tile.cuh" in reach[name]] == ["fused_sdf", "field_fwd_mma"]
     assert reach["fused_field"] == {"fused_field.cu", "field_tile.cuh", "common.cuh"}
     assert reach["fused_round"] == {"fused_round.cu"}
+
+
+@pytest.mark.parametrize(
+    "touched,stale",
+    [
+        ("mma_tile.cuh", {"fused_sdf", "field_fwd_mma"}),
+        ("field_tile.cuh", {"fused_field_stash", "fused_field"}),
+        ("common.cuh", {"fused_sdf", "fused_field_stash", "fused_field", "field_fwd_mma"}),
+        ("field_fwd_mma.cu", {"field_fwd_mma"}),
+    ],
+)
+def test_stale_on_the_kernel_sources(tmp_path, touched, stale):
+    """``_stale`` on a copy of the real sources with every library built:
+    touching one file makes exactly the libraries that reach it stale."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    out.mkdir()
+    old = 1_000_000_000
+    for src in _build.CSRC.iterdir():
+        (csrc / src.name).write_bytes(src.read_bytes())
+        os.utime(csrc / src.name, (old, old))
+    for name in _build.SOURCES:
+        (out / f"lib{name}.so").write_bytes(b"")
+        os.utime(out / f"lib{name}.so", (old + 10, old + 10))
+    assert not any(_build._stale(name, csrc, out) for name in _build.SOURCES)
+    os.utime(csrc / touched, (old + 20, old + 20))
+    assert {name for name in _build.SOURCES if _build._stale(name, csrc, out)} == stale
