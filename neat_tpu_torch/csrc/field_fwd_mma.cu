@@ -219,25 +219,67 @@ __device__ __forceinline__ void row_dots(const __nv_bfloat16* A, const __nv_bflo
   }
 }
 
-// the warp's valid rows of the strip, columns [0, width) of A, out to the
-// stash rows S[r * ld + col0 ..]; a row that does not start on 4 bytes
-// moves its first element alone, then bf16 pairs
-__device__ __forceinline__ void copy_out(const __nv_bfloat16* A, __nv_bfloat16* S, long ld, int col0,
-                                         int width, int rows) {
+// Moving the warp's rows between the activation buffer and the stash. A
+// stash row that does not start on 4 bytes moves its first element alone,
+// then bf16 pairs, and an odd last element alone. The loads of ROW_BATCH rows
+// are issued before any of their stores: one memory round trip a batch.
+constexpr int ROW_BATCH = 4;
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, int aligned) {
+  if (aligned) return *reinterpret_cast<const uint32_t*>(p);
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  return (uint32_t)q[0] | ((uint32_t)q[1] << 16);
+}
+__device__ __forceinline__ void st_pair(__nv_bfloat16* p, uint32_t v, int aligned) {
+  if (aligned) {
+    *reinterpret_cast<uint32_t*>(p) = v;
+  } else {
+    unsigned short* q = reinterpret_cast<unsigned short*>(p);
+    q[0] = (unsigned short)(v & 0xffffu);
+    q[1] = (unsigned short)(v >> 16);
+  }
+}
+__device__ __forceinline__ unsigned short ld_one(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned short*>(p);
+}
+__device__ __forceinline__ void st_one(__nv_bfloat16* p, unsigned short v) {
+  *reinterpret_cast<unsigned short*>(p) = v;
+}
+
+// the warp's valid rows, columns [0, width) of A, out to the stash rows
+// S[r * ld + col0 ..]
+__device__ __forceinline__ void copy_out(const __nv_bfloat16* __restrict__ A, __nv_bfloat16* __restrict__ S,
+                                         long ld, int col0, int width, int rows) {
   const int lane = threadIdx.x & 31;
-  for (int r = 0; r < rows; ++r) {
-    __nv_bfloat16* dst = S + r * ld + col0;
-    const __nv_bfloat16* src = A + r * LDA;
-    const int head = (int)((reinterpret_cast<uintptr_t>(dst) >> 1) & 1);
-    if (head && lane == 0) dst[0] = src[0];
-    const int pairs = (width - head) >> 1;
-    for (int p = lane; p < pairs; p += 32) {
-      const int c = head + 2 * p;
-      const uint32_t v = head ? mma_tile::pack_bf16x2(__bfloat162float(src[c]), __bfloat162float(src[c + 1]))
-                              : *reinterpret_cast<const uint32_t*>(src + c);
-      *reinterpret_cast<uint32_t*>(dst + c) = v;
+#pragma unroll 1
+  for (int r0 = 0; r0 < rows; r0 += ROW_BATCH) {
+    uint32_t v[ROW_BATCH][4];
+    unsigned short first[ROW_BATCH], last[ROW_BATCH];
+#pragma unroll
+    for (int rr = 0; rr < ROW_BATCH; ++rr) {
+      const __nv_bfloat16* src = A + (r0 + rr) * LDA;
+      const int head = (int)((reinterpret_cast<uintptr_t>(S + (r0 + rr) * ld + col0) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = head + 2 * (lane + 32 * i);
+        v[rr][i] = c + 1 < width ? ld_pair(src + c, !head) : 0u;
+      }
+      first[rr] = ld_one(src);
+      last[rr] = ld_one(src + width - 1);
     }
-    if (((width - head) & 1) && lane == 0) dst[width - 1] = src[width - 1];
+#pragma unroll
+    for (int rr = 0; rr < ROW_BATCH; ++rr) {
+      if (r0 + rr >= rows) break;
+      __nv_bfloat16* dst = S + (r0 + rr) * ld + col0;
+      const int head = (int)((reinterpret_cast<uintptr_t>(dst) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = head + 2 * (lane + 32 * i);
+        if (c + 1 < width) st_pair(dst + c, v[rr][i], 1);
+      }
+      if (head && lane == 0) st_one(dst, first[rr]);
+      if (((width - head) & 1) && lane == 1) st_one(dst + width - 1, last[rr]);
+    }
   }
 }
 
@@ -245,43 +287,59 @@ __device__ __forceinline__ void copy_out(const __nv_bfloat16* A, __nv_bfloat16* 
 __device__ __forceinline__ void load_in(__nv_bfloat16* A, const __nv_bfloat16* S, long ld, int col0,
                                         int width, int rows) {
   const int lane = threadIdx.x & 31;
-  for (int r = 0; r < mma_tile::WARP_ROWS; ++r) {
-    __nv_bfloat16* dst = A + r * LDA;
-    if (r >= rows) {
-      for (int c = 2 * lane; c < width; c += 64) *reinterpret_cast<uint32_t*>(dst + c) = 0u;
-      continue;
-    }
-    const __nv_bfloat16* src = S + r * ld + col0;
-    const int head = (int)((reinterpret_cast<uintptr_t>(src) >> 1) & 1);
-    if (head && lane == 0) dst[0] = src[0];
-    const int pairs = (width - head) >> 1;
-    for (int p = lane; p < pairs; p += 32) {
-      const int c = head + 2 * p;
-      const uint32_t v = *reinterpret_cast<const uint32_t*>(src + c);
-      if (head) {
-        const float2 f = mma_tile::unpack_bf16x2(v);
-        dst[c] = __float2bfloat16_rn(f.x);
-        dst[c + 1] = __float2bfloat16_rn(f.y);
-      } else {
-        *reinterpret_cast<uint32_t*>(dst + c) = v;
+#pragma unroll 1
+  for (int r0 = 0; r0 < mma_tile::WARP_ROWS; r0 += ROW_BATCH) {
+    uint32_t v[ROW_BATCH][4];
+    unsigned short first[ROW_BATCH], last[ROW_BATCH];
+#pragma unroll
+    for (int rr = 0; rr < ROW_BATCH; ++rr) {
+      const bool ok = r0 + rr < rows;
+      const __nv_bfloat16* src = S + (r0 + rr) * ld + col0;
+      const int head = (int)((reinterpret_cast<uintptr_t>(src) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = head + 2 * (lane + 32 * i);
+        v[rr][i] = ok && c + 1 < width ? *reinterpret_cast<const uint32_t*>(src + c) : 0u;
       }
+      first[rr] = ok && head && lane == 0 ? ld_one(src) : (unsigned short)0;
+      last[rr] = ok && ((width - head) & 1) && lane == 1 ? ld_one(src + width - 1) : (unsigned short)0;
     }
-    if (((width - head) & 1) && lane == 0) dst[width - 1] = src[width - 1];
+#pragma unroll
+    for (int rr = 0; rr < ROW_BATCH; ++rr) {
+      __nv_bfloat16* dst = A + (r0 + rr) * LDA;
+      const int head = (int)((reinterpret_cast<uintptr_t>(S + (r0 + rr) * ld + col0) >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = head + 2 * (lane + 32 * i);
+        if (c + 1 < width) st_pair(dst + c, v[rr][i], !head);
+      }
+      if (head && lane == 0) st_one(dst, first[rr]);
+      if (((width - head) & 1) && lane == 1) st_one(dst + width - 1, last[rr]);
+    }
   }
 }
 
 // layer 8's features of the warp's valid rows, rounded to bf16, into A (a
-// head's feature input); rows past `rows` are zeros
+// head's feature input); rows past `rows` are zeros. Eight 16-byte loads a
+// lane in flight at a time.
 __device__ __forceinline__ void load_feats(__nv_bfloat16* A, const float* Z, long ldz, int rows) {
   const int lane = threadIdx.x & 31;
-  for (int i = lane; i < mma_tile::WARP_ROWS * 64; i += 32) {
-    const int r = i >> 6, c = (i & 63) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) v = *reinterpret_cast<const float4*>(Z + r * ldz + c);
-    uint2 p;
-    p.x = mma_tile::pack_bf16x2(v.x, v.y);
-    p.y = mma_tile::pack_bf16x2(v.z, v.w);
-    *reinterpret_cast<uint2*>(A + r * LDA + c) = p;
+#pragma unroll 1
+  for (int i0 = 0; i0 < mma_tile::WARP_ROWS * 64; i0 += 8 * 32) {
+    float4 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = i0 + 32 * k + lane, r = i >> 6, c = (i & 63) * 4;
+      v[k] = r < rows ? *reinterpret_cast<const float4*>(Z + r * ldz + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = i0 + 32 * k + lane, r = i >> 6, c = (i & 63) * 4;
+      uint2 p;
+      p.x = mma_tile::pack_bf16x2(v[k].x, v[k].y);
+      p.y = mma_tile::pack_bf16x2(v[k].z, v[k].w);
+      *reinterpret_cast<uint2*>(A + r * LDA + c) = p;
+    }
   }
 }
 
