@@ -319,6 +319,18 @@ __device__ __forceinline__ void load_in(__nv_bfloat16* A, const __nv_bfloat16* S
   }
 }
 
+// asks L2 for bytes [off, off + bytes) of each of the warp's valid rows
+// (row stride ld bytes), one lane a row: issued a step before the rows are
+// read, it turns the read's trips to device memory into hits in L2
+__device__ __forceinline__ void prefetch_rows(const void* base, long ld, int off, int bytes, int rows) {
+  const int lane = threadIdx.x & 31;
+  if (lane < rows) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(base) + lane * ld + off;
+    const uintptr_t lo = a & ~(uintptr_t)15, hi = (a + bytes + 15) & ~(uintptr_t)15;
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(lo), "r"((uint32_t)(hi - lo)) : "memory");
+  }
+}
+
 // layer 8's features of the warp's valid rows, rounded to bf16, into A (a
 // head's feature input); rows past `rows` are zeros. Eight 16-byte loads a
 // lane in flight at a time.
@@ -345,11 +357,15 @@ __device__ __forceinline__ void load_feats(__nv_bfloat16* A, const float* Z, lon
 
 // One step of the gradient sweep, on u = V_L W_L^T in acc: the cotangent of
 // layer L-1's pre-activation, V_{L-1} = rnd(u sigma'(h_{L-1})), over the
-// h_{L-1} that A holds (read back from the stash), in place. Layer 4's
-// columns >= N_SKIP are the embedding's share: CE = u / sqrt 2, V = 0 there.
-template <int L>
-__device__ __forceinline__ void sweep_epilogue(const float (&acc)[32][4], __nv_bfloat16* A, float* CE) {
+// h_{L-1} that A holds (read back from the stash), in place. Layer 4
+// (skip): u / sqrt 2, and its columns >= N_SKIP are the embedding's share,
+// CE = u / sqrt 2, V = 0 there. One copy of the code serves every layer
+// (L is a runtime value, the layer-4 terms predicated): the steps run as a
+// loop, out of the instruction cache.
+__device__ __forceinline__ void sweep_epilogue(const float (&acc)[32][4], __nv_bfloat16* A, float* CE,
+                                               bool skip) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float cs = skip ? INV_SQRT2 : 1.f;
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const int col = 8 * j + 2 * t;
@@ -357,19 +373,19 @@ __device__ __forceinline__ void sweep_epilogue(const float (&acc)[32][4], __nv_b
     for (int hf = 0; hf < 2; ++hf) {
       const int r = g + 8 * hf;
       uint32_t* p = reinterpret_cast<uint32_t*>(A + r * LDA + col);
-      float u0 = acc[j][2 * hf], u1 = acc[j][2 * hf + 1];
-      if constexpr (L == 4) {
-        u0 *= INV_SQRT2;
-        u1 *= INV_SQRT2;
-        if (8 * j + 8 > N_SKIP) {  // the tile of columns that reaches the embedding's share
-          if (col >= N_SKIP) CE[r * LDCE + col - N_SKIP] = u0;
-          if (col + 1 >= N_SKIP) CE[r * LDCE + col + 1 - N_SKIP] = u1;
-        }
-      }
+      const float u0 = acc[j][2 * hf] * cs, u1 = acc[j][2 * hf + 1] * cs;
       const float2 h = mma_tile::unpack_bf16x2(*p);
       float v0 = u0 * sigma_prime(h.x), v1 = u1 * sigma_prime(h.y);
-      if (L == 4 && col >= N_SKIP) v0 = 0.f;
-      if (L == 4 && col + 1 >= N_SKIP) v1 = 0.f;
+      if (8 * j + 8 > N_SKIP) {  // the tile of columns that reaches the embedding's share
+        if (skip && col >= N_SKIP) {
+          CE[r * LDCE + col - N_SKIP] = u0;
+          v0 = 0.f;
+        }
+        if (skip && col + 1 >= N_SKIP) {
+          CE[r * LDCE + col + 1 - N_SKIP] = u1;
+          v1 = 0.f;
+        }
+      }
       *p = mma_tile::pack_bf16x2(v0, v1);
     }
   }
@@ -458,16 +474,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     __syncwarp();
 
     // ---- the implicit chain, each post-activation out to the stash ----
-    take_turn();
-    products<1, 3, LDEM>(acc, E, ring, feeder, false);
-    give_turn();
-    store_act<false>(acc, B, A);
-    __syncwarp();
-    copy_out(A, S, ld_s, 0, 256, rows);
 #pragma unroll 1
-    for (int l = 1; l <= 7; ++l) {
+    for (int l = 0; l <= 7; ++l) {
       take_turn();
-      products<4, 4, LDA>(acc, A, ring, feeder, false);
+      if (l == 0) products<1, 3, LDEM>(acc, E, ring, feeder, false);
+      else products<4, 4, LDA>(acc, A, ring, feeder, false);
       give_turn();
       __syncwarp();  // the strip is read: it may be overwritten
       if (l < 7) {
@@ -533,6 +544,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     take_turn();
     products<4, 4, LDA>(acc, A, ring, feeder, false);
     give_turn();
+    prefetch_rows(S, 2 * ld_s, 2 * soff(6), 2 * 256, rows);  // the sweep's first read
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -554,23 +566,21 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     __syncwarp();
 
     // ---- the spatial-gradient sweep over the transposed panels ----
-#define FIELD_SWEEP_STEP(L)                                               \
-  take_turn();                                                            \
-  products<4, 4, LDA>(acc, A, ring, feeder, false);                       \
-  give_turn();                                                            \
-  __syncwarp();                                                           \
-  load_in(A, S, ld_s, soff(L - 1), (L) - 1 == 3 ? N_SKIP : 256, rows);    \
-  __syncwarp();                                                           \
-  sweep_epilogue<L>(acc, A, CE);                                          \
-  __syncwarp();
-    FIELD_SWEEP_STEP(7)
-    FIELD_SWEEP_STEP(6)
-    FIELD_SWEEP_STEP(5)
-    FIELD_SWEEP_STEP(4)
-    FIELD_SWEEP_STEP(3)
-    FIELD_SWEEP_STEP(2)
-    FIELD_SWEEP_STEP(1)
-#undef FIELD_SWEEP_STEP
+#pragma unroll 1
+    for (int L = 7; L >= 1; --L) {
+      take_turn();
+      products<4, 4, LDA>(acc, A, ring, feeder, false);
+      give_turn();
+      if (L >= 2)  // the next step's rows; after the last step, the features
+        prefetch_rows(S, 2 * ld_s, 2 * soff(L - 2), 512, rows);
+      else
+        prefetch_rows(Z, 4 * ld_z, 0, 1024, rows);
+      __syncwarp();
+      load_in(A, S, ld_s, soff(L - 1), L - 1 == 3 ? N_SKIP : 256, rows);
+      __syncwarp();
+      sweep_epilogue(acc, A, CE, L == 4);
+      __syncwarp();
+    }
     take_turn();
     products<4, 4, LDA>(acc, A, ring, feeder, false);
     give_turn();
@@ -634,6 +644,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       take_turn();
       products<4, 4, LDA>(acc, A, ring, feeder, true);
       give_turn();
+      if (head == 0) prefetch_rows(Z, 4 * ld_z, 0, 1024, rows);  // the attraction head's features
       const float* bh = B + (head == 0 ? B9_OFF : B14_OFF);
       const int col0 = head == 0 ? S_RENDER : S_ATTR;
 #pragma unroll 1
