@@ -823,7 +823,6 @@ def profile_steps(path, n_steps: int, out_path: str):
     (torch.profiler), the launches per step and the device's busy share of
     the wall time; the table goes to out_path."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from neat_tpu_torch.utils.benchscene import bench_scene, bench_step
 
@@ -831,12 +830,26 @@ def profile_steps(path, n_steps: int, out_path: str):
     scene = bench_scene(cfg, device="cuda")
     step, state = bench_step(cfg, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    state, _ = step(state, scene, gen)  # warm-up outside the window
+    run = {"state": step(state, scene, gen)[0]}  # warm-up outside the window
+
+    def one():
+        run["state"], _ = step(run["state"], scene, gen)
+
+    return profile_calls(path, one, n_steps, out_path)
+
+
+def profile_calls(name, fn, n_calls: int, out_path: str):
+    """Device time by kernel over n_calls of fn() (torch.profiler), the
+    launches per call and the device's busy share of the wall time; the
+    table goes to out_path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            state, _ = step(state, scene, gen)
+        for _ in range(n_calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -848,18 +861,18 @@ def profile_steps(path, n_steps: int, out_path: str):
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
         if dev_us > 0:
-            rows.append((dev_us / 1e3 / n_steps, e.count / n_steps, e.key))
+            rows.append((dev_us / 1e3 / n_calls, e.count / n_calls, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     launches = sum(r[1] for r in rows)
     with open(out_path, "w") as f:
-        f.write(f"{path}: {n_steps} steps, wall {wall_ms / n_steps:.2f} ms/step, device busy "
-                f"{busy:.2f} ms/step in {launches:.0f} launches/step\n"
-                "ms/step  launches/step  kernel\n")
+        f.write(f"{name}: {n_calls} calls, wall {wall_ms / n_calls:.2f} ms/call, device busy "
+                f"{busy:.2f} ms/call in {launches:.0f} launches/call\n"
+                "ms/call  launches/call  kernel\n")
         for ms, cnt, key in rows:
             f.write(f"{ms:9.3f} {cnt:8.1f}  {key[:150]}\n")
-    return {"wall_ms_per_step": wall_ms / n_steps, "device_busy_ms_per_step": busy,
-            "launches_per_step": launches, "idle_share": 1.0 - busy / (wall_ms / n_steps),
+    return {"wall_ms_per_step": wall_ms / n_calls, "device_busy_ms_per_step": busy,
+            "launches_per_step": launches, "idle_share": 1.0 - busy / (wall_ms / n_calls),
             "top": rows[:12]}
 
 
@@ -916,18 +929,14 @@ def compare_paths():
     return out
 
 
-def eval_forward(n_rays):
-    """neat_forward(training=False) under no_grad on n_rays of the bench
-    scene: the kernel configuration (K1, and K3-fwd through the stash op's
-    no-grad dispatch) against the same configuration with the plain field
-    path (K1 stays, so both render the same sample points)."""
+def _eval_setup(n_rays):
+    """(kernel config, model, inputs) of a no-grad forward on n_rays rays of the bench scene."""
     import torch
 
-    from neat_tpu_torch.model.neat import init_neat, neat_forward
+    from neat_tpu_torch.model.neat import init_neat
     from neat_tpu_torch.utils.benchscene import bench_scene
 
     cfg_k = path_config("main")
-    cfg_p = dataclasses.replace(cfg_k, use_pallas_field=False)
     scene = bench_scene(cfg_k, device="cuda")
     model = init_neat(cfg_k, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -936,6 +945,36 @@ def eval_forward(n_rays):
         "uv_proj": torch.rand((n_rays, 2), generator=gen, device="cuda") * 512,
         "intrinsics": scene["intrinsics"][0], "pose": scene["pose"][0],
     }
+    return cfg_k, model, inputs
+
+
+def profile_eval_forward(n_rays, n_calls, out_path):
+    """profile_calls of the no-grad forward (K1 x5, K3-fwd) on n_rays rays."""
+    import torch
+
+    from neat_tpu_torch.model.neat import neat_forward
+
+    cfg, model, inputs = _eval_setup(n_rays)
+
+    def one():
+        with torch.no_grad():
+            neat_forward(model, inputs, cfg, training=False)
+
+    one()  # warm-up outside the window
+    return profile_calls("eval_forward", one, n_calls, out_path)
+
+
+def eval_forward(n_rays):
+    """neat_forward(training=False) under no_grad on n_rays of the bench
+    scene: the kernel configuration (K1, and K3-fwd through the stash op's
+    no-grad dispatch) against the same configuration with the plain field
+    path (K1 stays, so both render the same sample points)."""
+    import torch
+
+    from neat_tpu_torch.model.neat import neat_forward
+
+    cfg_k, model, inputs = _eval_setup(n_rays)
+    cfg_p = dataclasses.replace(cfg_k, use_pallas_field=False)
     fns = counters()
     for f in fns.values():
         f.launches = 0
@@ -1099,6 +1138,13 @@ def main() -> int:
                       f"{prof['idle_share']:.3f}", flush=True)
                 for ms, cnt, key in prof["top"]:
                     print(f"  {ms:9.3f} ms/step {cnt:7.1f}x  {key[:100]}", flush=True)
+            prof = profile_eval_forward(1024, 3, os.path.join(OUT_DIR, "profile_eval_forward.txt"))
+            report["profile"]["eval_forward"] = prof
+            print(f"profile eval forward (no grad, 1024 rays): wall {prof['wall_ms_per_step']:.2f} ms/call, "
+                  f"device busy {prof['device_busy_ms_per_step']:.2f} ms/call in "
+                  f"{prof['launches_per_step']:.0f} launches/call, idle share {prof['idle_share']:.3f}", flush=True)
+            for ms, cnt, key in prof["top"][:4]:
+                print(f"  {ms:9.3f} ms/call {cnt:7.1f}x  {key[:100]}", flush=True)
         paths = compare_paths()
         report["paths"] = paths
         for key in ("loss", "rgb_loss", "eikonal_loss"):

@@ -219,102 +219,91 @@ __device__ __forceinline__ void row_dots(const __nv_bfloat16* A, const __nv_bflo
   }
 }
 
-// Moving the warp's rows between the activation buffer and the stash. A
-// stash row that does not start on 4 bytes moves its first element alone,
-// then bf16 pairs, and an odd last element alone. The loads of ROW_BATCH rows
-// are issued before any of their stores: one memory round trip a batch.
-constexpr int ROW_BATCH = 4;
+// Moving the warp's rows between the activation buffer and the stash, in
+// 16-byte pieces. A stash row starts anywhere in a 16-byte piece (its rows
+// are 4057 bf16 apart): m = its start's element offset in the piece.
+constexpr int ROW_BATCH = 4;  // rows whose memory accesses are in flight together
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, int aligned) {
-  if (aligned) return *reinterpret_cast<const uint32_t*>(p);
-  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
-  return (uint32_t)q[0] | ((uint32_t)q[1] << 16);
+__device__ __forceinline__ int piece_offset(const __nv_bfloat16* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 7);
 }
-__device__ __forceinline__ void st_pair(__nv_bfloat16* p, uint32_t v, int aligned) {
-  if (aligned) {
-    *reinterpret_cast<uint32_t*>(p) = v;
-  } else {
-    unsigned short* q = reinterpret_cast<unsigned short*>(p);
-    q[0] = (unsigned short)(v & 0xffffu);
-    q[1] = (unsigned short)(v >> 16);
+
+// the eight bf16 of an activation row from element p on (p may be odd, or
+// -7 .. -1: bytes before the row, which the caller does not store)
+__device__ __forceinline__ uint4 ld_eight(const __nv_bfloat16* row, int p) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row) + (p >> 1);
+  uint4 v = make_uint4(w[0], w[1], w[2], w[3]);
+  if (p & 1) {
+    const uint32_t w4 = w[4];
+    v = make_uint4(__byte_perm(v.x, v.y, 0x5432), __byte_perm(v.y, v.z, 0x5432),
+                   __byte_perm(v.z, v.w, 0x5432), __byte_perm(v.w, w4, 0x5432));
   }
-}
-__device__ __forceinline__ unsigned short ld_one(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned short*>(p);
-}
-__device__ __forceinline__ void st_one(__nv_bfloat16* p, unsigned short v) {
-  *reinterpret_cast<unsigned short*>(p) = v;
+  return v;
 }
 
 // the warp's valid rows, columns [0, width) of A, out to the stash rows
-// S[r * ld + col0 ..]
-__device__ __forceinline__ void copy_out(const __nv_bfloat16* __restrict__ A, __nv_bfloat16* __restrict__ S,
-                                         long ld, int col0, int width, int rows) {
+// S[r * ld + col0 ..]: lane k stores the 16-byte piece k of the row (lane 0
+// also piece 32); a piece that the row covers only in part goes element by
+// element, so the stash columns beside it are left as they are
+__device__ __forceinline__ void copy_out(const __nv_bfloat16* A, __nv_bfloat16* S, long ld, int col0,
+                                         int width, int rows) {
   const int lane = threadIdx.x & 31;
 #pragma unroll 1
   for (int r0 = 0; r0 < rows; r0 += ROW_BATCH) {
-    uint32_t v[ROW_BATCH][4];
-    unsigned short first[ROW_BATCH], last[ROW_BATCH];
+    uint4 v[ROW_BATCH][2];
 #pragma unroll
     for (int rr = 0; rr < ROW_BATCH; ++rr) {
-      const __nv_bfloat16* src = A + (r0 + rr) * LDA;
-      const int head = (int)((reinterpret_cast<uintptr_t>(S + (r0 + rr) * ld + col0) >> 1) & 1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = head + 2 * (lane + 32 * i);
-        v[rr][i] = c + 1 < width ? ld_pair(src + c, !head) : 0u;
-      }
-      first[rr] = ld_one(src);
-      last[rr] = ld_one(src + width - 1);
+      const int m = piece_offset(S + (r0 + rr) * ld + col0);
+      v[rr][0] = ld_eight(A + (r0 + rr) * LDA, 8 * lane - m);
+      v[rr][1] = lane == 0 ? ld_eight(A + (r0 + rr) * LDA, 256 - m) : make_uint4(0u, 0u, 0u, 0u);  // piece 32
     }
 #pragma unroll
     for (int rr = 0; rr < ROW_BATCH; ++rr) {
       if (r0 + rr >= rows) break;
       __nv_bfloat16* dst = S + (r0 + rr) * ld + col0;
-      const int head = (int)((reinterpret_cast<uintptr_t>(dst) >> 1) & 1);
+      const int m = piece_offset(dst);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = head + 2 * (lane + 32 * i);
-        if (c + 1 < width) st_pair(dst + c, v[rr][i], 1);
+      for (int q = 0; q < 2; ++q) {
+        if (q == 1 && lane != 0) break;
+        const int p = (q ? 256 : 8 * lane) - m;  // the piece's first column
+        if (p >= width) continue;
+        if (p >= 0 && p + 8 <= width) {
+          *reinterpret_cast<uint4*>(dst + p) = v[rr][q];
+        } else {
+          const uint32_t w[4] = {v[rr][q].x, v[rr][q].y, v[rr][q].z, v[rr][q].w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (p + e >= 0 && p + e < width)
+              reinterpret_cast<unsigned short*>(dst)[p + e] = (unsigned short)(w[e >> 1] >> (16 * (e & 1)));
+        }
       }
-      if (head && lane == 0) st_one(dst, first[rr]);
-      if (((width - head) & 1) && lane == 1) st_one(dst + width - 1, last[rr]);
     }
   }
 }
 
-// the reverse: stash rows into A (columns [0, width)); rows past `rows` are zeros
+// the reverse, as a copy of whole 16-byte pieces: A's row r receives the 33
+// pieces that hold stash columns [col0, col0 + 256), so its column m_r + c
+// holds column col0 + c (m_r = piece_offset of the stash row, which
+// sweep_epilogue takes into account); rows past `rows` are zeros
 __device__ __forceinline__ void load_in(__nv_bfloat16* A, const __nv_bfloat16* S, long ld, int col0,
-                                        int width, int rows) {
+                                        int rows) {
   const int lane = threadIdx.x & 31;
 #pragma unroll 1
   for (int r0 = 0; r0 < mma_tile::WARP_ROWS; r0 += ROW_BATCH) {
-    uint32_t v[ROW_BATCH][4];
-    unsigned short first[ROW_BATCH], last[ROW_BATCH];
+    uint4 v[ROW_BATCH], last[ROW_BATCH];
 #pragma unroll
     for (int rr = 0; rr < ROW_BATCH; ++rr) {
-      const bool ok = r0 + rr < rows;
       const __nv_bfloat16* src = S + (r0 + rr) * ld + col0;
-      const int head = (int)((reinterpret_cast<uintptr_t>(src) >> 1) & 1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = head + 2 * (lane + 32 * i);
-        v[rr][i] = ok && c + 1 < width ? *reinterpret_cast<const uint32_t*>(src + c) : 0u;
-      }
-      first[rr] = ok && head && lane == 0 ? ld_one(src) : (unsigned short)0;
-      last[rr] = ok && ((width - head) & 1) && lane == 1 ? ld_one(src + width - 1) : (unsigned short)0;
+      const uint4* base = reinterpret_cast<const uint4*>(src - piece_offset(src));
+      const bool ok = r0 + rr < rows;
+      v[rr] = ok ? base[lane] : make_uint4(0u, 0u, 0u, 0u);
+      last[rr] = ok && lane == 0 ? base[32] : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int rr = 0; rr < ROW_BATCH; ++rr) {
-      __nv_bfloat16* dst = A + (r0 + rr) * LDA;
-      const int head = (int)((reinterpret_cast<uintptr_t>(S + (r0 + rr) * ld + col0) >> 1) & 1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = head + 2 * (lane + 32 * i);
-        if (c + 1 < width) st_pair(dst + c, v[rr][i], !head);
-      }
-      if (head && lane == 0) st_one(dst, first[rr]);
-      if (((width - head) & 1) && lane == 1) st_one(dst + width - 1, last[rr]);
+      uint4* dst = reinterpret_cast<uint4*>(A + (r0 + rr) * LDA);
+      dst[lane] = v[rr];
+      if (lane == 0) dst[32] = last[rr];
     }
   }
 }
@@ -363,31 +352,48 @@ __device__ __forceinline__ void load_feats(__nv_bfloat16* A, const float* Z, lon
 // (L is a runtime value, the layer-4 terms predicated): the steps run as a
 // loop, out of the instruction cache.
 __device__ __forceinline__ void sweep_epilogue(const float (&acc)[32][4], __nv_bfloat16* A, float* CE,
-                                               bool skip) {
+                                               bool skip, const int (&m)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float cs = skip ? INV_SQRT2 : 1.f;
+  // h sits at column m + col of the row as load_in left it: a half's reads
+  // (columns up to m + 128 * (half + 1)) all come before its writes
+  // (columns below 128 * (half + 1)), and after the previous half's writes
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int col = 8 * j + 2 * t;
+  for (int half = 0; half < 2; ++half) {
+    uint32_t hw[16][2];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = g + 8 * hf;
-      uint32_t* p = reinterpret_cast<uint32_t*>(A + r * LDA + col);
-      const float u0 = acc[j][2 * hf] * cs, u1 = acc[j][2 * hf + 1] * cs;
-      const float2 h = mma_tile::unpack_bf16x2(*p);
-      float v0 = u0 * sigma_prime(h.x), v1 = u1 * sigma_prime(h.y);
-      if (8 * j + 8 > N_SKIP) {  // the tile of columns that reaches the embedding's share
-        if (skip && col >= N_SKIP) {
-          CE[r * LDCE + col - N_SKIP] = u0;
-          v0 = 0.f;
-        }
-        if (skip && col + 1 >= N_SKIP) {
-          CE[r * LDCE + col + 1 - N_SKIP] = u1;
-          v1 = 0.f;
-        }
+    for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int col = 8 * (16 * half + jj) + 2 * t;
+        const uint32_t* hp = reinterpret_cast<const uint32_t*>(A + (g + 8 * hf) * LDA) + ((m[hf] + col) >> 1);
+        hw[jj][hf] = (m[hf] & 1) ? __byte_perm(hp[0], hp[1], 0x5432) : hp[0];
       }
-      *p = mma_tile::pack_bf16x2(v0, v1);
     }
+    __syncwarp();
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int j = 16 * half + jj, col = 8 * j + 2 * t;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = g + 8 * hf;
+        const float u0 = acc[j][2 * hf] * cs, u1 = acc[j][2 * hf + 1] * cs;
+        const float2 h = mma_tile::unpack_bf16x2(hw[jj][hf]);
+        float v0 = u0 * sigma_prime(h.x), v1 = u1 * sigma_prime(h.y);
+        if (8 * j + 8 > N_SKIP) {  // the tile of columns that reaches the embedding's share
+          if (skip && col >= N_SKIP) {
+            CE[r * LDCE + col - N_SKIP] = u0;
+            v0 = 0.f;
+          }
+          if (skip && col + 1 >= N_SKIP) {
+            CE[r * LDCE + col + 1 - N_SKIP] = u1;
+            v1 = 0.f;
+          }
+        }
+        *reinterpret_cast<uint32_t*>(A + r * LDA + col) = mma_tile::pack_bf16x2(v0, v1);
+      }
+    }
+    __syncwarp();
   }
 }
 
@@ -576,9 +582,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       else
         prefetch_rows(Z, 4 * ld_z, 0, 1024, rows);
       __syncwarp();
-      load_in(A, S, ld_s, soff(L - 1), L - 1 == 3 ? N_SKIP : 256, rows);
+      load_in(A, S, ld_s, soff(L - 1), rows);
       __syncwarp();
-      sweep_epilogue(acc, A, CE, L == 4);
+      const int m[2] = {piece_offset(S + g * ld_s + soff(L - 1)), piece_offset(S + (g + 8) * ld_s + soff(L - 1))};
+      sweep_epilogue(acc, A, CE, L == 4, m);
       __syncwarp();
     }
     take_turn();
