@@ -481,9 +481,8 @@ def check_k2(model, cfg, n, dtype, gen, reps, library=False):
         "fwd_max_abs_err": fwd_abs, "bwd_max_abs_err": bwd_abs, "finite": finite,
     }
     if reps:
+        # (the forward is timed in turns by check_fwd)
         with torch.no_grad():
-            rec["fwd_ms"] = time_ms(lambda: K.field_fwd_stash_kernel(flat, x, d, icfg, cd), reps)
-            rec["fwd_plain_ms"] = time_ms(lambda: K.field_fwd_res(flat, x, d, icfg, rcfg, cd), reps)
             rec["bwd_ms"] = time_ms(
                 lambda: K.field_bwd_stash_kernel(
                     flat, x, d, scd_p, sf32_p, rgb_p, grads_p, cots, icfg, cd
@@ -507,13 +506,11 @@ def check_k2(model, cfg, n, dtype, gen, reps, library=False):
 
             rec["bwd_library_ms"] = time_ms(lib_bwd, reps)
             del outs
-        fwd_macs, bwd_macs = k2_macs_per_point()
+        _, bwd_macs = k2_macs_per_point()
         cdb = 2 if dtype == "bfloat16" else 4
         wb = weight_bytes(CANONICAL_SHAPES, cdb)
         stash = K.W_CD * cdb + K.W_F32 * 4
-        fwd_bytes = n * (24 + 52 + stash) + 2 * wb
         bwd_bytes = n * (24 + 24 + stash + 52 + 24) + 2 * wb + 4 * _n_param_grads()
-        rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound_ms(fwd_macs * n, fwd_bytes, dtype)
         rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound_ms(bwd_macs * n, bwd_bytes, dtype)
     tol = TOL[dtype]
     require(finite, f"K2 {dtype} n={n}: non-finite output")
@@ -606,20 +603,17 @@ def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
         rec["plain_self_max"] = max(rel_err(a, b) for a, b in zip(halves, plain))
     del plain
     if reps:
+        # (the forward is timed in turns by check_fwd)
         with torch.no_grad():
-            rec["fwd_ms"] = time_ms(lambda: F.field_fwd_kernel(flat, x, d, icfg, cd), reps)
-            rec["fwd_plain_ms"] = time_ms(lambda: F.field_math(flat, x, d, icfg, rcfg, cd), reps)
             rec["bwd_ms"] = time_ms(lambda: F.field_bwd_kernel(flat, x, d, cots, icfg, cd), reps)
         rec["bwd_plain_ms"] = time_ms(lambda: _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd), reps)
         if library is not None:
             # K3-bwd is handed no residuals, so its route runs the forward too
-            rec["fwd_library_ms"], rec["bwd_library_ms"] = library[0], library[0] + library[1]
+            rec["bwd_library_ms"] = library[0] + library[1]
         fwd_macs, bwd_macs = k2_macs_per_point()
         cdb = 2 if dtype == "bfloat16" else 4
         wb = weight_bytes(F.CANONICAL_SHAPES, cdb)
-        fwd_bytes = n * (24 + 52) + 2 * wb
         bwd_bytes = n * (24 + 52 + 24) + 2 * wb + 4 * F._n_param_grads()
-        rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound_ms(fwd_macs * n, fwd_bytes, dtype)
         rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound_ms((fwd_macs + bwd_macs) * n, bwd_bytes, dtype)
     what = f"K3 {dtype} n={n}"
     require(finite, f"{what}: non-finite output")
@@ -1088,7 +1082,7 @@ def main() -> int:
         print_fwd(r)
     for r in k2:
         print(f"K2 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])} bwd {json.dumps(r['bwd_err'])}"
-              + (f", fwd {r['fwd_ms']:.3f} ms, bwd {r['bwd_ms']:.3f} ms" if "fwd_ms" in r else ""),
+              + (f", bwd {r['bwd_ms']:.3f} ms" if "bwd_ms" in r else ""),
               flush=True)
     for r in k3:
         print(f"K3 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])}; against K2: fwd "
@@ -1098,8 +1092,8 @@ def main() -> int:
               f"{r['bwd_points_off']} points off in dx or dd"
               + (f"; autograd against itself, products in two halves: L2 {r['plain_self_l2']:.3g}, "
                  f"max {r['plain_self_max']:.3g}" if "plain_self_l2" in r else "")
-              + (f"; fwd {r['fwd_ms']:.3f} ms (plain {r['fwd_plain_ms']:.3f}), bwd {r['bwd_ms']:.3f} ms "
-                 f"(plain {r['bwd_plain_ms']:.3f})" if "fwd_ms" in r else ""), flush=True)
+              + (f"; bwd {r['bwd_ms']:.3f} ms (plain {r['bwd_plain_ms']:.3f})" if "bwd_ms" in r else ""),
+              flush=True)
     for r in k4:
         print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on "
               f"{r['flipped_rays']} rays, max |err| elsewhere {r['max_abs_err']:.3g}, "

@@ -219,64 +219,59 @@ __device__ __forceinline__ void row_dots(const __nv_bfloat16* A, const __nv_bflo
   }
 }
 
-// Moving the warp's rows between the activation buffer and the stash, in
-// 16-byte pieces. A stash row starts anywhere in a 16-byte piece (its rows
-// are 4057 bf16 apart): m = its start's element offset in the piece.
-constexpr int ROW_BATCH = 4;  // rows whose memory accesses are in flight together
+// Moving the warp's rows between the activation buffer and the stash. A
+// stash row starts anywhere in a 16-byte piece (its rows are 4057 bf16
+// apart): m = its start's element offset in the piece. Out: bf16 pairs, the
+// row's first element alone where it is not 4-byte aligned, an odd last
+// element alone (16-byte pieces with shifted reads measured slower). In:
+// whole 16-byte pieces. The memory accesses of ROW_BATCH rows are in flight
+// together: one round trip a batch.
+constexpr int ROW_BATCH = 4;
 
 __device__ __forceinline__ int piece_offset(const __nv_bfloat16* p) {
   return (int)((reinterpret_cast<uintptr_t>(p) >> 1) & 7);
 }
 
-// the eight bf16 of an activation row from element p on (p may be odd, or
-// -7 .. -1: bytes before the row, which the caller does not store)
-__device__ __forceinline__ uint4 ld_eight(const __nv_bfloat16* row, int p) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(row) + (p >> 1);
-  uint4 v = make_uint4(w[0], w[1], w[2], w[3]);
-  if (p & 1) {
-    const uint32_t w4 = w[4];
-    v = make_uint4(__byte_perm(v.x, v.y, 0x5432), __byte_perm(v.y, v.z, 0x5432),
-                   __byte_perm(v.z, v.w, 0x5432), __byte_perm(v.w, w4, 0x5432));
-  }
-  return v;
+// elements p, p + 1 of an activation row as one word (p may be odd)
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* row, int p) {
+  if (!(p & 1)) return *reinterpret_cast<const uint32_t*>(row + p);
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(row + p);
+  return (uint32_t)q[0] | ((uint32_t)q[1] << 16);
 }
 
 // the warp's valid rows, columns [0, width) of A, out to the stash rows
-// S[r * ld + col0 ..]: lane k stores the 16-byte piece k of the row (lane 0
-// also piece 32); a piece that the row covers only in part goes element by
-// element, so the stash columns beside it are left as they are
-__device__ __forceinline__ void copy_out(const __nv_bfloat16* A, __nv_bfloat16* S, long ld, int col0,
-                                         int width, int rows) {
+// S[r * ld + col0 ..]
+__device__ __forceinline__ void copy_out(const __nv_bfloat16* __restrict__ A, __nv_bfloat16* __restrict__ S,
+                                         long ld, int col0, int width, int rows) {
   const int lane = threadIdx.x & 31;
 #pragma unroll 1
   for (int r0 = 0; r0 < rows; r0 += ROW_BATCH) {
-    uint4 v[ROW_BATCH][2];
+    uint32_t v[ROW_BATCH][4];
+    __nv_bfloat16 first[ROW_BATCH], last[ROW_BATCH];
 #pragma unroll
     for (int rr = 0; rr < ROW_BATCH; ++rr) {
-      const int m = piece_offset(S + (r0 + rr) * ld + col0);
-      v[rr][0] = ld_eight(A + (r0 + rr) * LDA, 8 * lane - m);
-      v[rr][1] = lane == 0 ? ld_eight(A + (r0 + rr) * LDA, 256 - m) : make_uint4(0u, 0u, 0u, 0u);  // piece 32
+      const __nv_bfloat16* src = A + (r0 + rr) * LDA;
+      const int head = piece_offset(S + (r0 + rr) * ld + col0) & 1;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = head + 2 * (lane + 32 * i);
+        v[rr][i] = c + 1 < width ? ld_pair(src, c) : 0u;
+      }
+      first[rr] = src[0];
+      last[rr] = src[width - 1];
     }
 #pragma unroll
     for (int rr = 0; rr < ROW_BATCH; ++rr) {
       if (r0 + rr >= rows) break;
       __nv_bfloat16* dst = S + (r0 + rr) * ld + col0;
-      const int m = piece_offset(dst);
+      const int head = piece_offset(dst) & 1;
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        if (q == 1 && lane != 0) break;
-        const int p = (q ? 256 : 8 * lane) - m;  // the piece's first column
-        if (p >= width) continue;
-        if (p >= 0 && p + 8 <= width) {
-          *reinterpret_cast<uint4*>(dst + p) = v[rr][q];
-        } else {
-          const uint32_t w[4] = {v[rr][q].x, v[rr][q].y, v[rr][q].z, v[rr][q].w};
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (p + e >= 0 && p + e < width)
-              reinterpret_cast<unsigned short*>(dst)[p + e] = (unsigned short)(w[e >> 1] >> (16 * (e & 1)));
-        }
+      for (int i = 0; i < 4; ++i) {
+        const int c = head + 2 * (lane + 32 * i);
+        if (c + 1 < width) *reinterpret_cast<uint32_t*>(dst + c) = v[rr][i];
       }
+      if (head && lane == 0) dst[0] = first[rr];
+      if (((width - head) & 1) && lane == 1) dst[width - 1] = last[rr];
     }
   }
 }

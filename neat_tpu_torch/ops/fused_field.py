@@ -356,13 +356,17 @@ def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
 field_fwd_kernel.launches = 0
 
 
+# the bf16 forwards: the tensor-core kernel the model runs, the scalar one f32 still runs
+FWD_VARIANTS = ("mma", "scalar")
+
+
 def field_fwd_kernel_variant(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
-    """K3-fwd by the tensor-core (``"mma"``) or the scalar (``"scalar"``)
-    kernel on bf16 CUDA tensors, for holding them against each other on the
-    card; nothing on the model's path calls it and it is not counted."""
+    """K3-fwd by one of ``FWD_VARIANTS`` on bf16 CUDA tensors, for holding
+    the kernels against each other on the card; nothing on the model's path
+    calls it and it is not counted."""
     if cd != torch.bfloat16:
         raise TypeError("the forward variants are bf16")
-    if variant not in ("mma", "scalar"):
+    if variant not in FWD_VARIANTS:
         raise ValueError(f"no forward variant {variant!r}")
     return _fwd_launch(flat_eff, x, d, icfg, cd, variant)
 

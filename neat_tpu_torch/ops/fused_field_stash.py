@@ -67,6 +67,7 @@ from . import _build
 from . import fused_sdf as K1
 from .fused_field import (
     _DTYPES,
+    FWD_VARIANTS,
     N_HEAD_LAYERS,
     N_IMPLICIT_LAYERS,
     _check_cotangents,
@@ -593,9 +594,6 @@ def field_fwd_stash_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
 
 
 field_fwd_stash_kernel.launches = 0
-
-# the bf16 forwards: the tensor-core kernel the main path runs, the scalar one f32 still runs
-FWD_VARIANTS = ("mma", "scalar")
 
 
 def field_fwd_stash_kernel_variant(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
