@@ -19,6 +19,8 @@
   order only; the tolerance of ``test_torch_ops.py``).
 * The wrappers refuse what the kernels do not take: CPU tensors (no silent
   fallback), f32 for the bf16 variants, unknown variants, wrong shapes.
+* ``tools/field_fwd_phases.py``'s edits still find their places in the
+  kernel's source.
 """
 
 import re
@@ -222,3 +224,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     err, call = _calls()[case]
     with pytest.raises(err):
         call()
+
+
+def test_phase_tool_instruments_the_kernel_source():
+    """``tools/field_fwd_phases.py`` edits a copy of the kernel's source by
+    matching its text: every edit still finds its place, and every turn
+    gets a timestamp before, in and after it."""
+    from neat_tpu_torch.tools import field_fwd_phases
+
+    src = field_fwd_phases.instrumented_source()
+    original = (_build.CSRC / "field_fwd_mma.cu").read_text()
+    turns = original.count("take_turn();")
+    assert turns > 0 and src.count("PHASE(1); take_turn(); PHASE(2);") == turns
+    assert src.count("give_turn(); PHASE(3);") == original.count("give_turn();")
+    for tag in (4, 5, 6, 7):
+        assert src.count(f"PHASE({tag});") == 1
