@@ -64,6 +64,7 @@ import torch
 
 from ..fields.mlp import ImplicitNetConfig, RenderNetConfig, _skip_concat, _softplus100
 from . import _build
+from . import field_dw as DW
 from . import fused_sdf as K1
 from .fused_field import (
     _DTYPES,
@@ -194,9 +195,11 @@ def _pe_tangent_x_transpose(cot_edot, e, x, xdot, multires):
     return out
 
 
-def field_bwd_stashed(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
-    """Backward from residuals: (deff, dx, dd), the cotangent application
-    of the forward above."""
+def _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
+    """The row-local part of ``field_bwd_stashed``: (prods, dbs, dx, dd).
+    ``prods[l]`` lists the (input, cotangent) pairs whose products
+    input^T cotangent, summed over the points, are dW_l: the implicit layers
+    a primal and a tangent pair, the heads one. ``dbs[l]`` is db_l."""
     iw, rw, aw = _unflatten_eff(flat_eff)
     cd = compute_dtype
     el = torch.promote_types(torch.float32, cd)
@@ -217,19 +220,20 @@ def field_bwd_stashed(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
     a_in = torch.cat([x, d, grads, feats], dim=-1)
 
     def head_bwd(weights, posts, inp0, delta):
-        dws = [None] * N_HEAD_LAYERS
+        prods, dbs = [None] * N_HEAD_LAYERS, [None] * N_HEAD_LAYERS
         for l in range(N_HEAD_LAYERS - 1, -1, -1):
             i_l = inp0.to(cd) if l == 0 else posts[l - 1]
             w, _ = weights[l]
-            dws[l] = (_mm(i_l.T, delta, cd, el), torch.sum(delta, dim=0, keepdim=True))
+            prods[l] = [(i_l, delta)]
+            dbs[l] = torch.sum(delta, dim=0, keepdim=True)
             t = _mm(delta, w.T, cd, el)
             if l > 0:
                 delta = t * (posts[l - 1].to(el) > 0)
-        return dws, t
+        return prods, dbs, t
 
     delta_r = c_rgb * rgb * (1.0 - rgb)
-    dws_r, cot_rin = head_bwd(rw, i_r, r_in, delta_r)
-    dws_a, cot_ain = head_bwd(aw, i_a, a_in, c_att)
+    prods_r, dbs_r, cot_rin = head_bwd(rw, i_r, r_in, delta_r)
+    prods_a, dbs_a, cot_ain = head_bwd(aw, i_a, a_in, c_att)
 
     n_enc = d_enc.shape[-1]
     cx_r = cot_rin[..., :3]
@@ -271,7 +275,7 @@ def field_bwd_stashed(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
     cot_e = torch.zeros_like(e)
     cot_edot = torch.zeros_like(e)
     ne = e.shape[-1]
-    d_iw = [None] * N_IMPLICIT_LAYERS
+    prods_i, dbs_i = [None] * N_IMPLICIT_LAYERS, [None] * N_IMPLICIT_LAYERS
     for l in range(N_IMPLICIT_LAYERS - 1, -1, -1):
         w, _ = iw[l]
         if l == 0:
@@ -280,8 +284,8 @@ def field_bwd_stashed(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
             inp_l = _skip_concat(i_post[3], e_cd)
         else:
             inp_l = i_post[l - 1]
-        dw = _mm(inp_l.T, v, cd, el) + _mm(tinp[l].T, vdot, cd, el)
-        d_iw[l] = (dw, torch.sum(v, dim=0, keepdim=True))
+        prods_i[l] = [(inp_l, v), (tinp[l], vdot)]
+        dbs_i[l] = torch.sum(v, dim=0, keepdim=True)
         u = _mm(v, w.T, cd, el)
         udot = _mm(vdot, w.T, cd, el)
         if l == 0:
@@ -305,11 +309,61 @@ def field_bwd_stashed(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
         dx = dx + c_sdf * m_sph * (-icfg.sphere_scale) * x / norm_x
         xdotC = torch.sum(x * C_g, dim=-1, keepdim=True)
         dx = dx + m_sph * (-icfg.sphere_scale) * (C_g / norm_x - x * xdotC / norm_x**3)
+    return prods_i + prods_r + prods_a, dbs_i + dbs_r + dbs_a, dx, dd
 
+
+def field_bwd_stashed(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
+    """Backward from residuals: (deff, dx, dd), the cotangent application
+    of the forward above."""
+    cd = compute_dtype
+    el = torch.promote_types(torch.float32, cd)
+    prods, dbs, dx, dd = _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, cd)
     deff = []
-    for dw, db in d_iw + dws_r + dws_a:
-        deff.append(dw)
-        deff.append(db)
+    for pairs, db in zip(prods, dbs):
+        dw = _mm(pairs[0][0].T, pairs[0][1], cd, el)
+        for a, y in pairs[1:]:
+            dw = dw + _mm(a.T, y, cd, el)
+        deff += [dw, db]
+    return tuple(deff), dx, dd
+
+
+def field_bwd_rowlocal_plain(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
+    """The split backward's row-local pass, as the producer kernel computes
+    it: (workspace, dbs, col8, dx, dd). The workspace (``field_dw``) holds
+    every dW operand of ``field_bwd_stashed`` rounded to the compute dtype;
+    dbs are the 19 bias gradients, dx and dd the point cotangents (all three
+    ``field_bwd_stashed``'s own); col8 is layer 8's tangent term, the f32
+    column sum of its tangent input (its cotangent is the one-hot sdf seed),
+    which belongs to dW_8's column 0."""
+    cd = compute_dtype
+    el = torch.promote_types(torch.float32, cd)
+    prods, dbs, dx, dd = _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, cd)
+    shapes = tuple(tuple(w.shape) for w in flat_eff[0::2])
+    ops = {}
+    for l, pairs in enumerate(prods):
+        for (a, y), (kin, kcot) in zip(pairs, (("in", "cot"), ("tin", "tcot"))):
+            if l == N_IMPLICIT_LAYERS - 1 and kin == "tin":
+                continue
+            ops[kin, l], ops[kcot, l] = a, y
+    ws = DW.pack_workspace(ops, x.shape[0], cd, shapes)
+    col8 = torch.sum(prods[N_IMPLICIT_LAYERS - 1][1][0].to(cd).to(el), dim=0)
+    return ws, dbs, col8, dx, dd
+
+
+def field_bwd_split_plain(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
+    """``field_bwd_stashed`` organised as the split kernels compute it: the
+    row-local pass (``field_bwd_rowlocal_plain``), then every dW_l as one f32
+    sum over the workspace (``field_dw.field_dw_plain``; an implicit layer's
+    primal and tangent terms in one sum over twice the points), layer 8's
+    tangent column added. dx, dd and db are ``field_bwd_stashed``'s; dW
+    differs from it by the order of the f32 sums only."""
+    ws, dbs, col8, dx, dd = field_bwd_rowlocal_plain(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype)
+    shapes = tuple(tuple(w.shape) for w in flat_eff[0::2])
+    dws = DW.field_dw_plain(ws, shapes)
+    dws[N_IMPLICIT_LAYERS - 1][:, 0] += col8
+    deff = []
+    for dw, db in zip(dws, dbs):
+        deff += [dw, db]
     return tuple(deff), dx, dd
 
 
