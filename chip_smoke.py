@@ -8,6 +8,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only k1 # build fused_sdf.cu alone; K1's checks and timings
     python3 chip_smoke.py --only k2 # build field_fwd_mma.cu (+ the scalar K2); K2-fwd's checks and timings
     python3 chip_smoke.py --only k3 # the same for K3-fwd (+ the scalar K3)
+    python3 chip_smoke.py --only k2b # build field_dw_mma.cu and fused_field_stash.cu; the split K2-bwd's checks and timings
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -23,19 +24,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    K2-fwd (every output and the stash; stash entries more than one bf16
    step off are counted) and K3-fwd (also against K2-fwd), beside the
    scalar kernels they replaced, at 1, 127, 129 and 1000 points and, timed
-   in turns with the library route, at the main path's 100,352; K2-fwd and K2-bwd
+   in turns with the library route, at the main path's 100,352; the split
+   bf16 K2-bwd (its row-local pass writes a workspace of weight-gradient
+   operands, a tensor-core GEMM sums them) at 1, 127, 129, 1000, 4096 and
+   100,352 points: dx, dd and the bias gradients equal to the fused scalar
+   K2-bwd's, every output against the plain version, the GEMM against its
+   plain version on the same workspace and against itself, timed in turns
+   with the scalar kernel, the plain version and the library route, each
+   stage timed and profiled; K2-fwd and K2-bwd
    (dx, dd, all 38 parameter gradients) at 4096 points in f32 and bf16 and
    at the main path's 100,352 points in bf16; K3-fwd and K3-bwd (the
    recompute pair) at the same sizes, against field_math and its autograd
-   and against the K2 pair (K2-bwd replaying the scalar K2-fwd's stash,
-   which K3-bwd's own forward tile matches); K4 (the sampler round) at 1024 rays x 128 and
+   and against the K2 pair (the fused scalar K2-bwd replaying the scalar
+   K2-fwd's stash, which K3-bwd's own tiles match); K4 (the sampler round) at 1024 rays x 128 and
    x 640 samples taken from a sampler run of the bench model, refine both
    ways;
 4. five full-width bf16 training steps of abc-neat-a (bench_step: 8 x 256
    SDF, 4 x 256 heads, 1024 rays x 98 samples, the 512^2 x 4-view bench
    scene) with every kernel launch counter set to 0 just before and read
    just after; each loss must be finite and each step must launch exactly
-   the kernels of its path (K1 x5, K2-fwd, K2-bwd);
+   the kernels of its path (K1 x5, K2-fwd, K2-bwd: its row-local pass and
+   its GEMM);
 5. three steps each of the two further configurations of the same entry
    point, counted the same way: bench_config(field='recompute') (K1 x5,
    K3-fwd, K3-bwd) and bench_config(fused_rounds='on') (K4 x5, K1 x5,
@@ -519,6 +528,176 @@ def check_k2(model, cfg, n, dtype, gen, reps, library=False):
     return rec
 
 
+# the split K2-bwd (bf16): its dx, dd and bias gradients against the fused
+# scalar kernel's (the same tile code: exactly), the GEMM against field_dw_plain
+# on the producer's own workspace (f32 sums of the same bf16 products in
+# another order), and two GEMM calls on one workspace against each other
+# (a fixed order of sums: exactly)
+K2B_VS_SCALAR = 0.0
+DW_VS_PLAIN = 1e-4
+# sizes of its checks: shorter than one 64-point chunk, ragged against the
+# 32-point tile and the chunk, and larger (the main path's size is added)
+K2B_SIZES = (1, 127, 129, 1000, 4096)
+
+
+def dw_work(n):
+    """(MACs, bytes) of the weight-gradient GEMM alone for n points: every
+    term's products over the points; the workspace read once, dW written once."""
+    from neat_tpu_torch.ops import field_dw as DW
+
+    prods = DW.dw_products()
+    macs = sum(m * o * len(terms) for m, o, terms in prods) * n
+    return macs, DW.WS_ROWS * 2 * n + 4 * sum(m * o for m, o, _ in prods)
+
+
+def k2b_bytes(n):
+    """Bytes K2-bwd must move for n points: x, d, grads, rgb, the four
+    cotangents and the stash read, dx and dd written, the weights and their
+    transposes read, the gradients written."""
+    from neat_tpu_torch.ops import fused_field_stash as K
+    from neat_tpu_torch.ops.fused_field import CANONICAL_SHAPES, _n_param_grads
+
+    stash = K.W_CD * 2 + K.W_F32 * 4
+    return n * (24 + 24 + stash + 52 + 24) + 2 * weight_bytes(CANONICAL_SHAPES, 2) + 4 * _n_param_grads()
+
+
+def check_k2b(model, cfg, n, gen, reps, library=False):
+    """The split bf16 K2-bwd on the plain forward's stash: against the fused
+    scalar K2-bwd (dx, dd, every bias gradient: equal), against the plain
+    version (every output within TOL), its GEMM against field_dw_plain on the
+    producer's workspace (and against a second call: equal), the producer's
+    workspace against the plain row-local pass's (reported). With ``reps``:
+    the split K2-bwd, the scalar one, the plain version and the library route
+    timed in turns, then the producer, the GEMM and their plain versions,
+    and each kernel's device time from the profiler."""
+    import torch
+
+    from neat_tpu_torch.ops import field_dw as DW
+    from neat_tpu_torch.ops import fused_field_stash as K
+    from neat_tpu_torch.ops.fused_field import _flatten_eff, _n_param_grads
+
+    cd = torch.bfloat16
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    x, d, cots = _field_inputs(n, gen)
+    with torch.no_grad():
+        flat = tuple(t.detach().contiguous() for t in _flatten_eff(model))
+        out_p, res = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
+        scd, sf32 = (t.contiguous() for t in K._pack_res(res))
+        rgb, grads = out_p[2].contiguous(), out_p[1].contiguous()
+        args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
+        split = K.field_bwd_stash_kernel_variant(*args, cd, "split")
+        scalar = K.field_bwd_stash_kernel_variant(*args, cd, "scalar")
+        ref = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
+        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args)
+        gemm = [torch.zeros(_n_param_grads(), device="cuda") for _ in range(2)]
+        for g in gemm:
+            DW.field_dw_kernel(ws, n, g)
+        dw_p = DW.field_dw_plain(ws)
+        ws_p = K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd)[0]
+        torch.cuda.synchronize()
+    flat_out = lambda r: (*r[0], r[1], r[2])
+    exact = [(a, b) for a, b in zip(flat_out(split), flat_out(scalar))]
+    exact = exact[1:38:2] + exact[38:]  # the 19 bias gradients, dx, dd
+    gemm_w = K._split_param_grads(gemm[0], flat)[0::2]
+    ops, ops_p = DW.unpack_workspace(ws, n), DW.unpack_workspace(ws_p, n)
+    rec = {
+        "n": n,
+        "vs_scalar": max(float((a - b).abs().max()) for a, b in exact),
+        "l2_vs_scalar": max(l2_err(a, b) for a, b in zip(flat_out(split), flat_out(scalar))),
+        "err": {"dx": rel_err(split[1], ref[1]), "dd": rel_err(split[2], ref[2]),
+                "dparams": max(rel_err(a, b) for a, b in zip(split[0], ref[0]))},
+        "scalar_err": {"dx": rel_err(scalar[1], ref[1]), "dd": rel_err(scalar[2], ref[2]),
+                       "dparams": max(rel_err(a, b) for a, b in zip(scalar[0], ref[0]))},
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(flat_out(split), flat_out(ref))),
+        "gemm_err": max(rel_err(a, b) for a, b in zip(gemm_w, dw_p)),
+        "gemm_max_abs_err": max(float((a - b).abs().max()) for a, b in zip(gemm_w, dw_p)),
+        "gemm_repeat_equal": bool(torch.equal(gemm[0], gemm[1])),
+        "ws_err": max(rel_err(ops[k], ops_p[k]) for k in ops),
+        "ws_pad_zero": not bool(ws[:, n:].any()),
+        "finite": all(bool(torch.isfinite(t).all()) for t in flat_out(split)),
+    }
+    # what the row-local pass alone computes: dx, dd, the bias gradients
+    rowlocal = lambda r: flat_out(r)[1:38:2] + flat_out(r)[38:]
+    rec["rowlocal_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(rowlocal(split), rowlocal(ref)))
+    del ops, ops_p, ws_p
+    if reps:
+        with torch.no_grad():
+            timed = {
+                "ms": lambda: K.field_bwd_stash_kernel(*args, cd),
+                "scalar_ms": lambda: K.field_bwd_stash_kernel_variant(*args, cd, "scalar"),
+                "plain_ms": lambda: K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd),
+            }
+        if library:
+            params = [p for n_, p in model.named_parameters()
+                      if n_.split(".")[0] in ("implicit", "rendering", "attraction")]
+            xg, dg = x.clone().requires_grad_(True), d.clone().requires_grad_(True)
+            outs = library_fwd(model, cfg, xg, dg, cd)()
+            lib_cots = (cots[0], cots[1], cots[2], cots[3].reshape(n, 2, 3))
+            timed["library_ms"] = lambda: torch.autograd.grad(outs, [*params, xg, dg], lib_cots, retain_graph=True)
+        for _ in range(2):  # in turns: every route once per round, two rounds
+            for key, fn in timed.items():
+                with torch.no_grad() if key != "library_ms" else torch.enable_grad():
+                    rec[key] = rec.get(key, 0.0) + time_ms(fn, reps // 2) / 2
+        g = torch.zeros(_n_param_grads(), device="cuda")
+        prods = DW.dw_products()
+        with torch.no_grad():
+            stages = {
+                "producer_ms": lambda: K.field_bwd_rowlocal_kernel(*args),
+                "producer_plain_ms": lambda: K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd),
+                "gemm_ms": lambda: DW.field_dw_kernel(ws, n, g),
+                "gemm_plain_ms": lambda: DW.field_dw_plain(ws),
+                # the yardstick: cuBLAS's bf16 products of the same operands (bf16 out), one call a term
+                "gemm_cublas_ms": lambda: [ws[ra : ra + m] @ ws[ry : ry + o].T
+                                           for m, o, terms in prods for ra, ry in terms],
+            }
+            for key, fn in stages.items():
+                rec[key] = time_ms(fn, max(2, reps // 4))
+            prof = profile_calls("k2b", lambda: K.field_bwd_stash_kernel(*args, cd), 3,
+                                 os.path.join(OUT_DIR, "profile_k2b.txt"))
+        rec["kernels_ms"] = [(key, ms) for ms, _, key in prof["top"][:6]]
+        fwd_macs, bwd_macs = k2_macs_per_point()
+        dw_macs, dw_bytes = dw_work(n)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(bwd_macs * n, k2b_bytes(n), "bfloat16")
+        rec["gemm_bound_ms"], rec["gemm_bound_by"] = bound_ms(dw_macs, dw_bytes, "bfloat16")
+        rec["producer_bound_ms"], rec["producer_bound_by"] = bound_ms(
+            bwd_macs * n - dw_macs, k2b_bytes(n) + DW.WS_ROWS * 2 * n, "bfloat16")
+    what = f"K2-bwd split bf16 n={n}"
+    require(rec["finite"], f"{what}: non-finite output")
+    require(rec["vs_scalar"] <= K2B_VS_SCALAR,
+            f"{what}: dx, dd or a bias gradient differs from the fused scalar kernel's by {rec['vs_scalar']:.3g}")
+    for k, v in rec["err"].items():
+        require(v <= TOL["bfloat16"], f"{what}: {k} err {v:.3g} > {TOL['bfloat16']}")
+    require(rec["gemm_err"] <= DW_VS_PLAIN, f"{what}: GEMM err {rec['gemm_err']:.3g} > {DW_VS_PLAIN}")
+    require(rec["gemm_repeat_equal"], f"{what}: two GEMM calls on one workspace differ")
+    require(rec["ws_pad_zero"], f"{what}: the workspace's padded points are not zero")
+    return rec
+
+
+def print_k2b(r):
+    line = (f"K2-bwd split bf16 n={r['n']}: against the fused scalar kernel: dx, dd, db max |diff| "
+            f"{r['vs_scalar']:.3g}, all outputs rel L2 {r['l2_vs_scalar']:.3g}; err {json.dumps({k: float(f'{v:.3g}') for k, v in r['err'].items()})}"
+            f" (scalar {json.dumps({k: float(f'{v:.3g}') for k, v in r['scalar_err'].items()})}); GEMM against "
+            f"field_dw_plain {r['gemm_err']:.3g}, repeat equal {r['gemm_repeat_equal']}; workspace against the plain "
+            f"row-local pass's {r['ws_err']:.3g}")
+    if "ms" in r:
+        line += (f"; {r['ms']:.3f} ms (scalar {r['scalar_ms']:.3f}, plain {r['plain_ms']:.3f}"
+                 + (f", library {r['library_ms']:.3f}" if "library_ms" in r else "")
+                 + f"; bound {r['bound_ms']:.3f} by {r['bound_by']}); producer {r['producer_ms']:.3f} ms "
+                 f"(plain {r['producer_plain_ms']:.3f}; bound {r['producer_bound_ms']:.3f} by {r['producer_bound_by']}), "
+                 f"GEMM {r['gemm_ms']:.3f} ms (plain {r['gemm_plain_ms']:.3f}, cuBLAS bf16 products "
+                 f"{r['gemm_cublas_ms']:.3f}; bound {r['gemm_bound_ms']:.3f} by {r['gemm_bound_by']}); by kernel "
+                 + ", ".join(f"{k[:40]} {ms:.3f}" for k, ms in r["kernels_ms"]))
+    print(line, flush=True)
+
+
+def k2b_phase(model, cfg, gen, quick, n_main):
+    """Every check of the split K2-bwd; (not quick) the main path's size, timed."""
+    recs = [check_k2b(model, cfg, n, gen, reps=0) for n in K2B_SIZES]
+    if not quick:
+        recs.append(check_k2b(model, cfg, n_main, gen, reps=6, library=True))
+    return recs
+
+
 def l2_err(a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm()) / max(1e-30, float(b.norm()))
@@ -555,12 +734,20 @@ def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
         ref = F.field_math(flat, x, d, icfg, rcfg, cd)
         k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
         bgot = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
-        # K3-bwd re-runs the scalar forward tile: K2-bwd replays the stash of
-        # the scalar K2-fwd (in bf16 the tensor cores sum in another order,
-        # and a relu moved across 0 changes a point's backward)
-        k2s = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar") if dtype == "bfloat16" else k2
-        bk2 = K.field_bwd_stash_kernel(flat, x, d, k2s[4], k2s[5], k2s[2], k2s[1], cots, icfg, cd)
-        bk2m = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
+        # K3-bwd re-runs the scalar forward tile and the fused scalar backward
+        # tile: the fused scalar K2-bwd replays the stash of the scalar K2-fwd
+        # (in bf16 the tensor cores sum in another order, and a relu moved
+        # across 0 changes a point's backward; the split K2-bwd sums dW in
+        # another order)
+        if dtype == "bfloat16":
+            k2s = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar")
+            k2_bwd = lambda s_: K.field_bwd_stash_kernel_variant(
+                flat, x, d, s_[4], s_[5], s_[2], s_[1], cots, icfg, cd, "scalar")
+        else:
+            k2s = k2
+            k2_bwd = lambda s_: K.field_bwd_stash_kernel(flat, x, d, s_[4], s_[5], s_[2], s_[1], cots, icfg, cd)
+        bk2 = k2_bwd(k2s)
+        bk2m = k2_bwd(k2)
         torch.cuda.synchronize()
     fwd_err = {k: rel_err(a, b) for k, a, b in zip(names, got, ref)}
     fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
@@ -709,7 +896,10 @@ def check_k4(data, scfg, refine, reps):
 
 def counters():
     from neat_tpu_torch.ops.fused_field import field_bwd_kernel, field_fwd_kernel
-    from neat_tpu_torch.ops.fused_field_stash import field_bwd_stash_kernel, field_fwd_stash_kernel
+    from neat_tpu_torch.ops.field_dw import field_dw_kernel
+    from neat_tpu_torch.ops.fused_field_stash import (
+        field_bwd_rowlocal_kernel, field_bwd_stash_kernel, field_fwd_stash_kernel,
+    )
     from neat_tpu_torch.ops.fused_round import fused_round_kernel
     from neat_tpu_torch.ops.fused_sdf import fused_sdf_kernel
 
@@ -717,6 +907,8 @@ def counters():
         "fused_sdf": fused_sdf_kernel,
         "field_fwd_stash": field_fwd_stash_kernel,
         "field_bwd_stash": field_bwd_stash_kernel,
+        "field_bwd_rowlocal": field_bwd_rowlocal_kernel,
+        "field_dw": field_dw_kernel,
         "field_fwd": field_fwd_kernel,
         "field_bwd": field_bwd_kernel,
         "fused_round": fused_round_kernel,
@@ -724,12 +916,14 @@ def counters():
 
 
 # launches per step of each path through bench_config -> bench_step; a kernel
-# not named launches 0 times
+# not named launches 0 times. The bf16 K2-bwd (field_bwd_stash) is the split
+# backward: its row-local pass and its weight-gradient GEMM count their own.
+K2_BWD = dict(field_bwd_stash=1, field_bwd_rowlocal=1, field_dw=1)
 PATHS = {
-    "main": (dict(), dict(fused_sdf=5, field_fwd_stash=1, field_bwd_stash=1)),
+    "main": (dict(), dict(fused_sdf=5, field_fwd_stash=1, **K2_BWD)),
     "recompute": (dict(field="recompute"), dict(fused_sdf=5, field_fwd=1, field_bwd=1)),
     "fused_rounds": (dict(fused_rounds="on"),
-                     dict(fused_round=5, fused_sdf=5, field_fwd_stash=1, field_bwd_stash=1)),
+                     dict(fused_round=5, fused_sdf=5, field_fwd_stash=1, **K2_BWD)),
 }
 
 
@@ -993,7 +1187,7 @@ def eval_forward(n_rays):
 # --only <kernel>: the libraries that kernel's checks build (the kernel's
 # own and the scalar kernel it is held against)
 ONLY = {"k1": ("fused_sdf",), "k2": ("field_fwd_mma", "fused_field_stash"),
-        "k3": ("field_fwd_mma", "fused_field")}
+        "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash")}
 
 
 def main() -> int:
@@ -1044,6 +1238,10 @@ def main() -> int:
             report["k1"] = k1_phase(model, cfg, gen, args.quick)
             for r in report["k1"]:
                 print_k1(r)
+        elif args.only == "k2b":
+            report["k2b"] = k2b_phase(model, cfg, gen, args.quick, n_main)
+            for r in report["k2b"]:
+                print_k2b(r)
         else:
             report[args.only] = fwd_phase(args.only, model, cfg, gen, args.quick, n_main)
             for r in report[args.only]:
@@ -1055,6 +1253,7 @@ def main() -> int:
     k1 = k1_phase(model, cfg, gen, args.quick)
     fwd2 = fwd_phase("k2", model, cfg, gen, args.quick, n_main)
     fwd3 = fwd_phase("k3", model, cfg, gen, args.quick, n_main)
+    k2b = k2b_phase(model, cfg, gen, args.quick, n_main)
     k2, k3, k4 = [], [], []
     rounds = sampler_rounds(model, cfg, 128 if args.quick else 1024, gen)
     require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(cfg.sampler.max_total_iters)],
@@ -1080,6 +1279,8 @@ def main() -> int:
         print_k1(r)
     for r in fwd2 + fwd3:
         print_fwd(r)
+    for r in k2b:
+        print_k2b(r)
     for r in k2:
         print(f"K2 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])} bwd {json.dumps(r['bwd_err'])}"
               + (f", bwd {r['bwd_ms']:.3f} ms" if "bwd_ms" in r else ""),
@@ -1099,7 +1300,7 @@ def main() -> int:
               f"{r['flipped_rays']} rays, max |err| elsewhere {r['max_abs_err']:.3g}, "
               f"{r['nan_rows']} rows with a NaN pdf"
               + (f", {r['ms']:.4f} ms (plain {r['plain_ms']:.3f})" if "ms" in r else ""), flush=True)
-    report.update(k1=k1, k2_fwd=fwd2, k3_fwd=fwd3, k2=k2, k3=k3, k4=k4)
+    report.update(k1=k1, k2_fwd=fwd2, k3_fwd=fwd3, k2b=k2b, k2=k2, k3=k3, k4=k4)
     out_path = os.path.join(OUT_DIR, "chip_smoke.json")
 
     if not args.quick:
@@ -1146,7 +1347,7 @@ def main() -> int:
                 f"{name} {paths[name][key]:.6g}" for name in (*PATHS, "plain")), flush=True)
         print(f"z values with K4 against without: median |diff| {paths['z_median_diff']:.3g}, "
               f"mean {paths['z_mean_diff']:.3g}; plain step ms {paths['plain_step_ms']}", flush=True)
-        t1, t2, t3, t4 = k1[0], k2[-1], k3[-1], k4[-1]
+        t1, t3, t4 = k1[0], k3[-1], k4[-1]
         src = "neat_tpu_torch/csrc/"
         kernels = [
             dict(name="fused_sdf", route="cuda", source=src + "fused_sdf.cu",
@@ -1164,8 +1365,26 @@ def main() -> int:
                 replaces=f"neat_tpu/ops/{file}.py:{line}", launches=runs[path]["launches"][name],
                 max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                 bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+        # the bf16 K2-bwd, the split one, timed in turns at the main path's
+        # size; and its two kernels, each with its own plain version and bound
+        tb = k2b[-1]
+        kernels.append(dict(
+            name="field_bwd_stash", route="cuda", source=src + "fused_field_stash.cu + field_dw_mma.cu",
+            replaces="neat_tpu/ops/fused_field_stash.py:465", launches=runs["main"]["launches"]["field_bwd_stash"],
+            max_abs_err=tb["max_abs_err"], ms=tb["ms"], plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
+            bound_by=tb["bound_by"], library_ms=tb["library_ms"]))
+        kernels.append(dict(
+            name="field_bwd_rowlocal", route="cuda", source=src + "fused_field_stash.cu",
+            replaces="neat_tpu/ops/fused_field_stash.py:465",
+            launches=runs["main"]["launches"]["field_bwd_rowlocal"], max_abs_err=tb["rowlocal_max_abs_err"],
+            ms=tb["producer_ms"], plain_ms=tb["producer_plain_ms"], bound_ms=tb["producer_bound_ms"],
+            bound_by=tb["producer_bound_by"], library_ms=None))
+        kernels.append(dict(
+            name="field_dw", route="cuda", source=src + "field_dw_mma.cu",
+            replaces="neat_tpu/ops/fused_field_stash.py:465", launches=runs["main"]["launches"]["field_dw"],
+            max_abs_err=tb["gemm_max_abs_err"], ms=tb["gemm_ms"], plain_ms=tb["gemm_plain_ms"],
+            bound_ms=tb["gemm_bound_ms"], bound_by=tb["gemm_bound_by"], library_ms=None))
         for name, file, line, rec, side, path in (
-            ("field_bwd_stash", "fused_field_stash", 465, t2, "bwd", "main"),
             ("field_bwd", "fused_field", 223, t3, "bwd", "recompute"),
         ):
             kernels.append(dict(

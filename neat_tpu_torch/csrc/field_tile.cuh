@@ -13,6 +13,42 @@
 
 constexpr int S_ROWS = 8 * TT * 256;  // per-block scratch: the tangent pre-activations
 
+// The split backward's workspace (ops/field_dw.py, which computes the same
+// offsets): WS_ROWS bf16 rows of np points each, one row per feature of each
+// weight-gradient operand. First row of layer l's input (WS_IN), tangent
+// input (WS_TIN, implicit layers 0..7), output cotangent (WS_COT) and tangent
+// cotangent (WS_TCOT). With EMIT, the backward tile stores these operands
+// at its 32 point columns instead of adding its dW into the partials.
+constexpr int WS_IN[19] = {0, 590, 1614, 2638, 3584, 4608, 5632, 6656, 7680, 8193, 8738, 9250, 9762, 10274, 10533, 11054, 11566, 12078, 12590};
+constexpr int WS_TIN[8] = {39, 846, 1870, 2894, 3840, 4864, 5888, 6912};
+constexpr int WS_COT[19] = {78, 1102, 2126, 3150, 4096, 5120, 6144, 7168, 7936, 8482, 8994, 9506, 10018, 10530, 10798, 11310, 11822, 12334, 12846};
+constexpr int WS_TCOT[8] = {334, 1358, 2382, 3367, 4352, 5376, 6400, 7424};
+constexpr int WS_ROWS = 12852;
+template <int L> struct Ws {  // the rows of layer L's operands, as constants
+  static constexpr int in = WS_IN[L];
+  static constexpr int tin = L < 8 ? WS_TIN[L < 8 ? L : 0] : -1;
+  static constexpr int cot = WS_COT[L];
+  static constexpr int tcot = L < 8 ? WS_TCOT[L < 8 ? L : 0] : -1;
+};
+
+struct WsOut {
+  __nv_bfloat16* p;  // the workspace at the tile's first point column
+  long np;           // its row length: the points rounded up to a multiple of 64
+};
+
+// workspace rows [row, row + w) at the tile's point columns <- src[t][j]
+// (row stride ld), already bf16 values; points past the end get zeros
+__device__ __forceinline__ void emit_rows(const WsOut& ws, int row, int w, const float* src, int ld,
+                                          int valid) {
+  for (int i = threadIdx.x; i < w * (TT / 2); i += NT) {
+    const int j = i / (TT / 2), t = 2 * (i % (TT / 2));
+    const float a = t < valid ? src[t * ld + j] : 0.f;
+    const float b = t + 1 < valid ? src[(t + 1) * ld + j] : 0.f;
+    *reinterpret_cast<__nv_bfloat162*>(ws.p + (long)(row + j) * ws.np + t) =
+        __floats2bfloat162_rn(a, b);
+  }
+}
+
 template <typename CD>
 __device__ __forceinline__ float stash(const CD* scd, long row, int col) {
   return to_f(scd[row * W_CD + col]);
@@ -233,13 +269,18 @@ __device__ __forceinline__ void field_fwd_tile(const float* __restrict__ x,
 
 // a head's hidden layer L going down: dW_L += post_{L-1}^T delta_L, then
 // delta_{L-1} = (delta_L W_L^T) * (post_{L-1} > 0), with its bias gradient
-template <int L, typename CD>
+template <int L, typename CD, bool EMIT = false>
 __device__ __forceinline__ void head_bwd_step(float*& Dr, float* BA, float*& Dn, const CD* WT,
                                               float* Gp, const CD* scd, int col, long row0,
-                                              int valid) {
+                                              int valid, const WsOut& ws) {
   load_stash<CD>(BA, scd, row0, valid, col, 256);
   __syncthreads();
-  tile_wgrad(Gp + Lyr<L>::g, 256, Lyr<L>::out, BA, LDH, Dr, LDH, nullptr, 0, nullptr, 0);
+  if constexpr (EMIT) {
+    emit_rows(ws, Ws<L>::in, 256, BA, LDH, valid);
+    emit_rows(ws, Ws<L>::cot, Lyr<L>::out, Dr, LDH, valid);
+  } else {
+    tile_wgrad(Gp + Lyr<L>::g, 256, Lyr<L>::out, BA, LDH, Dr, LDH, nullptr, 0, nullptr, 0);
+  }
   tile_mm<CD>(Dr, LDH, WT + Lyr<L>::w, 256, Lyr<L>::out, 256, [&](int t, int j, float v) {
     Dn[t * LDH + j] = BA[t * LDH + j] > 0.f ? v : 0.f;
   });
@@ -252,17 +293,22 @@ __device__ __forceinline__ void head_bwd_step(float*& Dr, float* BA, float*& Dn,
 
 // the whole head backward; Dr holds the output layer's rounded delta on entry.
 // Returns the buffer holding the f32 cotangent of the head input.
-template <int L0, typename CD>
+template <int L0, typename CD, bool EMIT = false>
 __device__ __forceinline__ float* head_bwd(float* Dr, float* BA, float* Dn, int mv, int col,
                                            const CD* WT, float* Gp, const CD* scd, long row0,
                                            int valid, const float* X, const float* Dv,
-                                           const float* Gr, const float* F) {
-  head_bwd_step<L0 + 4, CD>(Dr, BA, Dn, WT, Gp, scd, col + 768, row0, valid);
-  head_bwd_step<L0 + 3, CD>(Dr, BA, Dn, WT, Gp, scd, col + 512, row0, valid);
-  head_bwd_step<L0 + 2, CD>(Dr, BA, Dn, WT, Gp, scd, col + 256, row0, valid);
-  head_bwd_step<L0 + 1, CD>(Dr, BA, Dn, WT, Gp, scd, col, row0, valid);
+                                           const float* Gr, const float* F, const WsOut& ws) {
+  head_bwd_step<L0 + 4, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col + 768, row0, valid, ws);
+  head_bwd_step<L0 + 3, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col + 512, row0, valid, ws);
+  head_bwd_step<L0 + 2, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col + 256, row0, valid, ws);
+  head_bwd_step<L0 + 1, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col, row0, valid, ws);
   head_input<CD>(BA, mv, X, Dv, Gr, F, W_F32, valid);
-  tile_wgrad(Gp + Lyr<L0>::g, Lyr<L0>::in, 256, BA, LDH, Dr, LDH, nullptr, 0, nullptr, 0);
+  if constexpr (EMIT) {
+    emit_rows(ws, Ws<L0>::in, Lyr<L0>::in, BA, LDH, valid);
+    emit_rows(ws, Ws<L0>::cot, 256, Dr, LDH, valid);
+  } else {
+    tile_wgrad(Gp + Lyr<L0>::g, Lyr<L0>::in, 256, BA, LDH, Dr, LDH, nullptr, 0, nullptr, 0);
+  }
   tile_mm<CD>(Dr, LDH, WT + Lyr<L0>::w, Lyr<L0>::in, 256, Lyr<L0>::in,
               [&](int t, int j, float v) { Dn[t * LDH + j] = v; });
   __syncthreads();
@@ -286,14 +332,20 @@ __device__ __forceinline__ void tangent_layer(const float* src, int lds, float* 
 // one layer of the combined primal + tangent reverse sweep. On entry Vr, VDr
 // hold layer L's rounded output cotangents and A1, A2 its primal and tangent
 // inputs; on exit (L > 0) the same roles for layer L - 1.
-template <int L, typename CD>
+template <int L, typename CD, bool EMIT = false>
 __device__ __forceinline__ void sweep_layer(float*& Vr, float*& VDr, float*& A1, float*& A2,
                                             const float* Ec, const float* EDc, float* CE,
                                             float* CED, const CD* WT, float* Gp, const float* ZD,
-                                            const CD* scd, long row0, int valid) {
+                                            const CD* scd, long row0, int valid, const WsOut& ws) {
   constexpr int in = Lyr<L>::in, out = Lyr<L>::out;
+  if constexpr (EMIT && L < 8) {
+    emit_rows(ws, Ws<L>::in, in, L == 0 ? Ec : A1, L == 0 ? LDE : LDH, valid);
+    emit_rows(ws, Ws<L>::tin, in, L == 0 ? EDc : A2, L == 0 ? LDE : LDH, valid);
+    emit_rows(ws, Ws<L>::cot, out, Vr, LDH, valid);
+    emit_rows(ws, Ws<L>::tcot, out, VDr, LDH, valid);
+  }
   if constexpr (L == 0) {
-    tile_wgrad(Gp + Lyr<0>::g, in, out, Ec, LDE, Vr, LDH, EDc, LDE, VDr, LDH);
+    if constexpr (!EMIT) tile_wgrad(Gp + Lyr<0>::g, in, out, Ec, LDE, Vr, LDH, EDc, LDE, VDr, LDH);
     tile_mm2<CD>(Vr, VDr, LDH, WT + Lyr<0>::w, in, out, in, [&](int t, int j, float u, float ud) {
       CE[t * LDE + j] += u;
       CED[t * LDE + j] += ud;
@@ -303,14 +355,19 @@ __device__ __forceinline__ void sweep_layer(float*& Vr, float*& VDr, float*& A1,
     if constexpr (L == 8) {
       // the tangent seed is one-hot on the sdf channel (valid rows only):
       // its dW is column 0 alone
-      tile_wgrad(Gp + Lyr<8>::g, in, out, A1, LDH, Vr, LDH, nullptr, 0, nullptr, 0);
+      if constexpr (EMIT) {
+        emit_rows(ws, Ws<8>::in, in, A1, LDH, valid);
+        emit_rows(ws, Ws<8>::cot, out, Vr, LDH, valid);
+      } else {
+        tile_wgrad(Gp + Lyr<8>::g, in, out, A1, LDH, Vr, LDH, nullptr, 0, nullptr, 0);
+      }
       __syncthreads();
       for (int k = threadIdx.x; k < in; k += NT) {
         float s = 0.f;
         for (int t = 0; t < TT; ++t) s = fmaf(A2[t * LDH + k], VDr[t * LDH], s);
         Gp[Lyr<8>::g + (long)k * out] += s;
       }
-    } else {
+    } else if constexpr (!EMIT) {
       tile_wgrad(Gp + Lyr<L>::g, in, out, A1, LDH, Vr, LDH, A2, LDH, VDr, LDH);
     }
     __syncthreads();
@@ -396,14 +453,15 @@ __device__ __forceinline__ void sweep_layer(float*& Vr, float*& VDr, float*& A1,
 // __restrict__: the recompute kernel rewrites them between tiles. Gp is this
 // block's partial of the parameter gradients, ZD its S_ROWS floats of scratch.
 // smem: BWD_SMEM bytes. Ends with a barrier.
-template <typename CD>
+template <typename CD, bool EMIT = false>
 __device__ __forceinline__ void field_bwd_tile(
     const float* __restrict__ x, const float* __restrict__ d, const CD* scd, const float* sf32,
     const float* rgb, const float* grads, const float* __restrict__ c_sdf,
     const float* __restrict__ c_g, const float* __restrict__ c_rgb,
     const float* __restrict__ c_att, const CD* __restrict__ W, const CD* __restrict__ WT,
     float* __restrict__ dx_out, float* __restrict__ dd_out, float* Gp, float* ZD, long row0,
-    int valid, float radius, float scale, float* smem) {
+    int valid, float radius, float scale, float* smem, WsOut ws_all = WsOut{nullptr, 0}) {
+  const WsOut ws{EMIT ? ws_all.p + row0 : nullptr, ws_all.np};  // the tile's point columns
   float* X = smem;                             // TT x 4 points
   float* Dv = X + TT * 4;                      // TT x 4 directions
   float* Gr = Dv + TT * 4;                     // TT x 4 forward spatial gradients
@@ -470,7 +528,8 @@ __device__ __forceinline__ void field_bwd_tile(
   }
   __syncthreads();
   round_rows<CD>(B0, 3, Gp + Lyr<13>::db);
-  float* cot_r = head_bwd<9, CD>(B0, B1, B2, 4, S_RENDER, WT, Gp, scd, s0, valid, X, Dv, Gr, F);
+  float* cot_r =
+      head_bwd<9, CD, EMIT>(B0, B1, B2, 4, S_RENDER, WT, Gp, scd, s0, valid, X, Dv, Gr, F, ws);
   float* free_r = cot_r == B2 ? B0 : B2;
   for (int i = tid; i < TT * 6; i += NT) {
     const int t = i / 6, j = i % 6;
@@ -478,7 +537,8 @@ __device__ __forceinline__ void field_bwd_tile(
   }
   __syncthreads();
   round_rows<CD>(free_r, 6, Gp + Lyr<18>::db);
-  float* cot_a = head_bwd<14, CD>(free_r, B1, B3, 0, S_ATTR, WT, Gp, scd, s0, valid, X, Dv, Gr, F);
+  float* cot_a =
+      head_bwd<14, CD, EMIT>(free_r, B1, B3, 0, S_ATTR, WT, Gp, scd, s0, valid, X, Dv, Gr, F, ws);
 
   // cot_r: [x 3, PE4(d) 27, grads 3, feats 256]; cot_a: [x 3, d 3, grads 3, feats 256]
   if (tid < TT) {
@@ -555,15 +615,15 @@ __device__ __forceinline__ void field_bwd_tile(
   float* VDr = seed_vd;
   float* A1 = T1;
   float* A2 = T0;
-  sweep_layer<8, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<7, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<6, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<5, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<4, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<3, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<2, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<1, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
-  sweep_layer<0, CD>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid);
+  sweep_layer<8, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<7, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<6, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<5, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<4, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<3, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<2, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<1, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<0, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
 
   // ---- dx: PE transposes and the sphere branch ----
   if (tid < valid) {

@@ -23,8 +23,12 @@ __global__ void __launch_bounds__(NT)
                            reinterpret_cast<float*>(smem4));
 }
 
-// persistent: each block walks tiles and adds into its own partial gradients
-template <typename CD>
+// persistent: each block walks tiles and adds into its own partial gradients.
+// EMIT (the split backward, bf16): the tiles store their weight-gradient
+// operands into the workspace instead, and the partials take only the bias
+// gradients and layer 8's tangent column (the rest stays 0); the GEMM in
+// field_dw_mma.cu adds the weight gradients afterwards.
+template <typename CD, bool EMIT>
 __global__ void __launch_bounds__(NT)
     field_bwd_stash_kernel(const float* __restrict__ x, const float* __restrict__ d,
                            const CD* __restrict__ scd, const float* __restrict__ sf32,
@@ -34,7 +38,7 @@ __global__ void __launch_bounds__(NT)
                            const CD* __restrict__ W, const CD* __restrict__ WT,
                            float* __restrict__ dx_out, float* __restrict__ dd_out,
                            float* __restrict__ partials, float* __restrict__ scratch, int n,
-                           float radius, float scale) {
+                           float radius, float scale, WsOut ws) {
   extern __shared__ float4 smem4[];
   float* Gp = partials + (long)blockIdx.x * N_PARAMS;  // this block's parameter gradients
   float* ZD = scratch + (long)blockIdx.x * S_ROWS;
@@ -44,9 +48,9 @@ __global__ void __launch_bounds__(NT)
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long row0 = (long)tile * TT;
     const int valid = min(TT, (int)(n - row0));
-    field_bwd_tile<CD>(x, d, scd + row0 * W_CD, sf32 + row0 * W_F32, rgb + row0 * 3,
-                       grads + row0 * 3, c_sdf, c_g, c_rgb, c_att, W, WT, dx_out, dd_out, Gp, ZD,
-                       row0, valid, radius, scale, reinterpret_cast<float*>(smem4));
+    field_bwd_tile<CD, EMIT>(x, d, scd + row0 * W_CD, sf32 + row0 * W_F32, rgb + row0 * 3,
+                             grads + row0 * 3, c_sdf, c_g, c_rgb, c_att, W, WT, dx_out, dd_out, Gp,
+                             ZD, row0, valid, radius, scale, reinterpret_cast<float*>(smem4), ws);
   }
 }
 
@@ -75,23 +79,23 @@ extern "C" void field_bwd_layout(int n, int max_blocks, int* n_blocks, long long
   *scratch_per_block = S_ROWS;
 }
 
-template <typename CD>
+template <typename CD, bool EMIT = false>
 static int bwd(const void* x, const void* d, const void* scd, const void* sf32, const void* rgb,
                const void* grads, const void* c_sdf, const void* c_g, const void* c_rgb,
                const void* c_att, const void* w, const void* wt, void* dx, void* dd,
                void* dparams, void* partials, void* scratch, int n, int max_blocks, float radius,
-               float scale, void* stream) {
+               float scale, void* stream, WsOut ws = WsOut{nullptr, 0}) {
   const int n_blocks = persistent_blocks(n, max_blocks);
-  cudaError_t err = cudaFuncSetAttribute(field_bwd_stash_kernel<CD>,
+  cudaError_t err = cudaFuncSetAttribute(field_bwd_stash_kernel<CD, EMIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)BWD_SMEM);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
-  field_bwd_stash_kernel<CD><<<n_blocks, NT, BWD_SMEM, s>>>(
+  field_bwd_stash_kernel<CD, EMIT><<<n_blocks, NT, BWD_SMEM, s>>>(
       (const float*)x, (const float*)d, (const CD*)scd, (const float*)sf32, (const float*)rgb,
       (const float*)grads, (const float*)c_sdf, (const float*)c_g, (const float*)c_rgb,
       (const float*)c_att, (const CD*)w, (const CD*)wt, (float*)dx, (float*)dd,
-      (float*)partials, (float*)scratch, n, radius, scale);
+      (float*)partials, (float*)scratch, n, radius, scale, ws);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials<<<(int)((N_PARAMS + 255) / 256), 256, 0, s>>>((const float*)partials,
@@ -124,4 +128,20 @@ extern "C" int field_bwd_stash_bf16(BWD_ARGS) {
 extern "C" int field_bwd_stash_f32(BWD_ARGS) {
   return bwd<float>(x, d, scd, sf32, rgb, grads, c_sdf, c_g, c_rgb, c_att, w, wt, dx, dd,
                     dparams, partials, scratch, n, max_blocks, radius, scale, stream);
+}
+
+// the split backward's row-local pass (bf16): as field_bwd_stash_bf16, and
+// the weight-gradient operands into the workspace ws (WS_ROWS rows of ws_np
+// points; ws_np a multiple of 64, the columns past the tiles zeroed by the
+// caller), whose GEMM then adds dW into dparams
+extern "C" int field_bwd_split_bf16(const void* x, const void* d, const void* scd, const void* sf32,
+                                    const void* rgb, const void* grads, const void* c_sdf,
+                                    const void* c_g, const void* c_rgb, const void* c_att,
+                                    const void* w, const void* wt, void* dx, void* dd,
+                                    void* dparams, void* partials, void* scratch, void* ws, int n,
+                                    int max_blocks, int ws_np, float radius, float scale,
+                                    void* stream) {
+  return bwd<__nv_bfloat16, true>(x, d, scd, sf32, rgb, grads, c_sdf, c_g, c_rgb, c_att, w, wt,
+                                  dx, dd, dparams, partials, scratch, n, max_blocks, radius, scale,
+                                  stream, WsOut{(__nv_bfloat16*)ws, (long)ws_np});
 }

@@ -172,6 +172,29 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[32][4], const uint32
         MMA_TILE_D16(20), MMA_TILE_D16(24), MMA_TILE_D16(28)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
+// the same with A from shared memory too: d = (accumulate ? d : 0) + A(desc_a)
+// * B(desc_b), both K-major swizzled panels (A: 64 rows of the product)
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[32][4], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MMA_TILE_D16(0), MMA_TILE_D16(4), MMA_TILE_D16(8), MMA_TILE_D16(12), MMA_TILE_D16(16),
+        MMA_TILE_D16(20), MMA_TILE_D16(24), MMA_TILE_D16(28)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 #undef MMA_TILE_D16
 #undef MMA_TILE_D4
 

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from neat_tpu_torch.model.neat import init_neat
+from neat_tpu_torch.ops import field_dw as DW
 from neat_tpu_torch.ops import fused_field as F
 from neat_tpu_torch.ops import fused_field_stash as K
 from neat_tpu_torch.ops import fused_round as R
@@ -100,6 +101,39 @@ def _field_inputs(n):
     return x, d, tuple(torch.randn((n, w), device="cuda") for w in (1, 3, 3, 6))
 
 
+@pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 32-point tile and 64-point chunk
+def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
+    """The split bf16 K2-bwd: dx, dd and every bias gradient equal the fused
+    scalar kernel's (the same tile code); dW within the bf16 tolerance of the
+    plain version; the GEMM within 1e-4 of field_dw_plain on the producer's
+    own workspace, and bit-equal from one call to the next."""
+    cfg, model = setup
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    cd = torch.bfloat16
+    x, d, cots = _field_inputs(n_points)
+    with torch.no_grad():
+        flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+        out, res = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
+        scd, sf32 = (r.contiguous() for r in K._pack_res(res))
+        rgb, grads = out[2].contiguous(), out[1].contiguous()
+        args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg, cd)
+        deff, dx, dd = K.field_bwd_stash_kernel_variant(*args, "split")
+        deff_s, dx_s, dd_s = K.field_bwd_stash_kernel_variant(*args, "scalar")
+        deff_p, dx_p, dd_p = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
+        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args[:-1])
+        dws = [torch.zeros(F._n_param_grads(), device="cuda") for _ in range(2)]
+        for g in dws:
+            DW.field_dw_kernel(ws, n_points, g)
+        plain = DW.field_dw_plain(ws)
+    assert torch.equal(dx, dx_s) and torch.equal(dd, dd_s)
+    for l in range(19):
+        assert torch.equal(deff[2 * l + 1], deff_s[2 * l + 1])
+        assert _err(deff[2 * l], deff_p[2 * l]) < TOL[cd]
+    assert torch.equal(dws[0], dws[1])
+    for a, b in zip(K._split_param_grads(dws[0], flat)[0::2], plain):
+        assert _err(a, b) < 1e-4
+
+
 @pytest.mark.parametrize("cd", DTYPES)
 def test_k3_kernels_match_plain_and_k2(setup, cd):
     cfg, model = setup
@@ -111,9 +145,14 @@ def test_k3_kernels_match_plain_and_k2(setup, cd):
         ref = F.field_math(flat, x, d, icfg, rcfg, cd)
         k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
         deff, dx, dd = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
-        # K3-bwd re-runs the scalar forward tile: K2-bwd replays the scalar K2-fwd's stash
-        k2s = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar") if cd == torch.bfloat16 else k2
-        deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2s[4], k2s[5], k2s[2], k2s[1], cots, icfg, cd)
+        # K3-bwd re-runs the scalar forward tile and the fused scalar backward
+        # tile: the fused scalar K2-bwd replays the scalar K2-fwd's stash
+        if cd == torch.bfloat16:
+            k2s = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar")
+            deff2, dx2, dd2 = K.field_bwd_stash_kernel_variant(
+                flat, x, d, k2s[4], k2s[5], k2s[2], k2s[1], cots, icfg, cd, "scalar")
+        else:
+            deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
     fwd_tol = 1e-5 if cd == torch.float32 else 3e-2
     for a, b, c in zip(got, ref, k2):
         assert _err(a, b) < fwd_tol and _err(a, c) <= 1e-6
@@ -178,9 +217,9 @@ def test_k4_kernel_matches_plain(setup, refine):
 @pytest.mark.parametrize(
     "kwargs,expected",
     [
-        (dict(), dict(sdf=5, fwd_stash=1, bwd_stash=1)),
+        (dict(), dict(sdf=5, fwd_stash=1, bwd_stash=1, rowlocal=1, dw=1)),
         (dict(field="recompute"), dict(sdf=5, fwd=1, bwd=1)),
-        (dict(fused_rounds="on"), dict(round=5, sdf=5, fwd_stash=1, bwd_stash=1)),
+        (dict(fused_rounds="on"), dict(round=5, sdf=5, fwd_stash=1, bwd_stash=1, rowlocal=1, dw=1)),
     ],
 )
 def test_training_step_launches_its_kernels(setup, kwargs, expected):
@@ -190,6 +229,7 @@ def test_training_step_launches_its_kernels(setup, kwargs, expected):
     scene = bench_scene(cfg, device="cuda")
     step, state = bench_step(cfg, device="cuda", n_rays=128)
     fns = dict(sdf=fused_sdf_kernel, fwd_stash=K.field_fwd_stash_kernel, bwd_stash=K.field_bwd_stash_kernel,
+               rowlocal=K.field_bwd_rowlocal_kernel, dw=DW.field_dw_kernel,
                fwd=F.field_fwd_kernel, bwd=F.field_bwd_kernel, round=R.fused_round_kernel)
     before = {k: f.launches for k, f in fns.items()}
     state, metrics = step(state, scene, torch.Generator(device="cuda").manual_seed(0))

@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-import neat_tpu.ops.fused_field as jff
 import neat_tpu.ops.fused_field_stash as jfs
 import neat_tpu_torch.model.neat as tneat
 from _torch_helpers import configs, n, port_model, to_numpy
@@ -206,6 +205,19 @@ def test_workspace_round_trips(n_pts):
         DW.pack_workspace({**ops, ("cot", 3): ops["cot", 2]}, n_pts, torch.bfloat16)
 
 
+def test_workspace_offsets_match_the_producer():
+    """``csrc/field_tile.cuh`` hard-codes the first row of each operand."""
+    src = (_build.CSRC / "field_tile.cuh").read_text()
+    for kind in ("in", "tin", "cot", "tcot"):
+        m = re.search(r"WS_%s\[\d+\]\s*=\s*\{([^}]*)\}" % kind.upper(), src)
+        assert m, kind
+        got = [int(v) for v in m.group(1).split(",") if v.strip()]
+        want = [DW.WS_ROW[kind, l] for l in range(19) if (kind, l) in DW.WS_ROW]
+        assert got == want, kind
+    m = re.search(r"WS_ROWS\s*=\s*(\d+)", src)
+    assert m and int(m.group(1)) == DW.WS_ROWS
+
+
 @pytest.mark.parametrize("n_pts", [1, 127, 129, 1000])
 def test_gemm_schedule_covers_each_product_once(n_pts):
     rs = np.random.RandomState(n_pts)
@@ -222,3 +234,33 @@ def test_gemm_schedule_covers_each_product_once(n_pts):
     units, tiles = DW.dw_schedule(n_pts, 3)
     assert units.dtype == tiles.dtype == torch.int32
     assert units.shape[1] == DW.UNIT_INTS and tiles.shape[1] == DW.TILE_INTS
+
+
+def _calls():
+    flat = _flat(torch.bfloat16)
+    icfg = tneat.NeatConfig.for_abc().implicit
+    bf, f32 = torch.bfloat16, torch.float32
+    n_ = 4
+    x, d = torch.zeros((n_, 3)), torch.zeros((n_, 3))
+    scd, sf32 = torch.zeros((n_, K.W_CD), dtype=bf), torch.zeros((n_, K.W_F32))
+    rgb, grads = torch.zeros((n_, 3)), torch.zeros((n_, 3))
+    cots = [torch.zeros((n_, w)) for w in (1, 3, 3, 6)]
+    args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
+    ws = torch.zeros((DW.WS_ROWS, DW.ws_points(n_)), dtype=bf)
+    return {
+        "bwd_cpu": (ValueError, lambda: K.field_bwd_stash_kernel(*args, bf)),
+        "split_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "split")),
+        "scalar_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "scalar")),
+        "split_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "split")),
+        "unknown": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "wgmma")),
+        "gemm_cpu": (ValueError, lambda: DW.field_dw_kernel(ws, n_, torch.zeros(F._n_param_grads()))),
+    }
+
+
+@pytest.mark.parametrize("case", list(_calls()))
+def test_bwd_variants_refuse_what_the_kernels_do_not_take(case):
+    err, call = _calls()[case]
+    before = (K.field_bwd_stash_kernel.launches, DW.field_dw_kernel.launches)
+    with pytest.raises(err):
+        call()
+    assert (K.field_bwd_stash_kernel.launches, DW.field_dw_kernel.launches) == before
