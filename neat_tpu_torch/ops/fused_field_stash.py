@@ -682,16 +682,19 @@ def _bwd_layout(n: int, max_blocks: int):
     return blocks.value, n_params.value, scratch.value
 
 
-# the bf16 backwards: the split one the model runs (the row-local pass into
-# a workspace, then the weight-gradient GEMM), the fused scalar one that f32
-# runs and that K3-bwd is held against
-BWD_VARIANTS = ("split", "scalar")
+# the bf16 backwards. Split: a row-local pass writes the weight-gradient
+# operands into a workspace and the GEMM of ``field_dw`` sums them; its
+# row-local pass on the tensor cores ("mma", csrc/field_bwd_mma.cu: the model's)
+# or on the CUDA cores ("split", the scalar tile). "scalar": the fused scalar
+# kernel, which f32 runs and which K3-bwd is held against.
+BWD_VARIANTS = ("mma", "split", "scalar")
+_ROWLOCAL_ENTRY = {"mma": ("field_bwd_mma", "field_bwd_mma"), "split": ("fused_field_stash", "field_bwd_split")}
 
 
-def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, split: bool):
+def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str):
     """K2-bwd's tile kernel and the sum of its per-block partials: (dparams,
-    dx, dd, workspace). Fused (``split`` False): dparams holds every
-    gradient, workspace is None. Split: dparams holds the bias gradients and
+    dx, dd, workspace). "scalar" (fused): dparams holds every gradient,
+    workspace is None. "split" or "mma": dparams holds the bias gradients and
     layer 8's tangent column, its other dW entries 0; the workspace
     (``field_dw``) holds the weight-gradient operands."""
     n = x.shape[0]
@@ -713,13 +716,13 @@ def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, 
     P = _build.ptr
     args = (P(x), P(d), P(scd), P(sf32), P(rgb), P(grads), *(P(c) for c in cots),
             P(w_all), P(wt_all), P(dx), P(dd), P(dparams), P(partials), P(scratch))
-    if split:
+    if variant != "scalar":
         width = DW.ws_points(n)
         ws = torch.empty((DW.WS_ROWS, width), dtype=torch.bfloat16, **kw)
         covered = -(-n // 32) * 32  # the 32-point tiles write every column before this
         if covered < width:
             ws[:, covered:].zero_()
-        err = _entry("fused_field_stash", "field_bwd_split", cd, 18, 3)(
+        err = _entry(*_ROWLOCAL_ENTRY[variant], cd, 18, 3)(
             *args, P(ws), n, n_sm, width, icfg.sdf_bounding_sphere, icfg.sphere_scale,
             _build.stream_ptr(x),
         )
@@ -728,15 +731,19 @@ def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, 
         err = _entry("fused_field_stash", "field_bwd_stash", cd, 17, 2)(
             *args, n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
         )
-    _build.check(err, f"fused field backward kernel launch ({'split' if split else 'scalar'})")
+    _build.check(err, f"fused field backward kernel launch ({variant})")
     return dparams, dx, dd, ws
 
 
-def field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig):
-    """Launch the split K2-bwd's row-local pass (bf16): -> (dparams, dx, dd,
-    workspace), as ``_bwd_rowlocal_launch`` describes them; its plain version
-    is ``field_bwd_rowlocal_plain``."""
-    out = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, torch.bfloat16, True)
+def field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig,
+                              variant: str = "mma"):
+    """Launch the split K2-bwd's row-local pass (bf16), on the tensor cores
+    ("mma") or the CUDA cores ("split"): -> (dparams, dx, dd, workspace), as
+    ``_bwd_rowlocal_launch`` describes them; its plain version is
+    ``field_bwd_rowlocal_plain``."""
+    if variant not in _ROWLOCAL_ENTRY:
+        raise ValueError(f"no row-local pass {variant!r}")
+    out = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, torch.bfloat16, variant)
     field_bwd_rowlocal_kernel.launches += 1
     return out
 
@@ -745,26 +752,27 @@ field_bwd_rowlocal_kernel.launches = 0
 
 
 def _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str):
-    if variant == "split":
+    if variant != "scalar":
         if x.shape[0] == 0:
             _check_operands(flat_eff, x, d, cd, (scd, sf32, rgb, grads, *cots))
             z = torch.zeros(sum(w.numel() for w in flat_eff), dtype=torch.float32, device=x.device)
             dparams, dx, dd = z, torch.zeros((0, 3), device=x.device), torch.zeros((0, 3), device=x.device)
         else:
-            dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg)
+            dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, variant)
             DW.field_dw_kernel(ws, x.shape[0], dparams)
     else:
-        dparams, dx, dd, _ = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, False)
+        dparams, dx, dd, _ = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant)
     return _split_param_grads(dparams, flat_eff), dx, dd
 
 
 def field_bwd_stash_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig, cd):
     """Launch K2-bwd: -> (deff (38 f32 tensors shaped like flat_eff), dx (N,3),
     dd (N,3)). ``cots`` are the contiguous f32 cotangents (N,1), (N,3), (N,3),
-    (N,6). bf16 runs the split backward (the row-local pass, then the
-    weight-gradient GEMM of ``field_dw``), f32 the fused scalar kernel."""
+    (N,6). bf16 runs the split backward with its row-local pass on the tensor
+    cores ("mma", then the weight-gradient GEMM of ``field_dw``), f32 the
+    fused scalar kernel."""
     out = _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd,
-                      "split" if cd == torch.bfloat16 else "scalar")
+                      "mma" if cd == torch.bfloat16 else "scalar")
     field_bwd_stash_kernel.launches += 1
     return out
 

@@ -19,7 +19,7 @@ GEMM) through its plain versions, on the CPU.
   plain PyTorch) covers each product once: it equals ``field_dw_plain``
   within 1e-6 at 1, 127, 129 and 1000 points.
 * the variant API refuses what the kernels do not take: unknown variants,
-  f32 for the split variant, CPU tensors.
+  f32 for the split variants, CPU tensors; nothing is counted.
 """
 
 import dataclasses
@@ -251,7 +251,11 @@ def _calls():
         "bwd_cpu": (ValueError, lambda: K.field_bwd_stash_kernel(*args, bf)),
         "split_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "split")),
         "scalar_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "scalar")),
+        "mma_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "mma")),
+        "rowlocal_cpu": (ValueError, lambda: K.field_bwd_rowlocal_kernel(*args)),
+        "rowlocal_unknown": (ValueError, lambda: K.field_bwd_rowlocal_kernel(*args, "scalar")),
         "split_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "split")),
+        "mma_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "mma")),
         "unknown": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "wgmma")),
         "gemm_cpu": (ValueError, lambda: DW.field_dw_kernel(ws, n_, torch.zeros(F._n_param_grads()))),
     }
@@ -260,7 +264,8 @@ def _calls():
 @pytest.mark.parametrize("case", list(_calls()))
 def test_bwd_variants_refuse_what_the_kernels_do_not_take(case):
     err, call = _calls()[case]
-    before = (K.field_bwd_stash_kernel.launches, DW.field_dw_kernel.launches)
+    counters = (K.field_bwd_stash_kernel, K.field_bwd_rowlocal_kernel, DW.field_dw_kernel)
+    before = [f.launches for f in counters]
     with pytest.raises(err):
         call()
-    assert (K.field_bwd_stash_kernel.launches, DW.field_dw_kernel.launches) == before
+    assert [f.launches for f in counters] == before
