@@ -269,3 +269,17 @@ def test_bwd_variants_refuse_what_the_kernels_do_not_take(case):
     with pytest.raises(err):
         call()
     assert [f.launches for f in counters] == before
+
+
+def test_parts_tool_edits_still_apply(tmp_path, monkeypatch):
+    """``tools/field_bwd_parts.py`` switches parts of the tensor-core
+    row-local pass off by matching the kernel's source text: every edit of
+    every part still finds its one place."""
+    from neat_tpu_torch.tools import field_bwd_parts
+
+    monkeypatch.setattr(field_bwd_parts, "OUT", str(tmp_path))
+    for part, edits in field_bwd_parts.PARTS.items():
+        out = field_bwd_parts.part_sources(part)
+        for name, _, new in edits:
+            assert new in (tmp_path / part / name).read_text(), (part, name)
+        assert (tmp_path / part / "field_bwd_mma.cu").exists() and out == str(tmp_path / part)
