@@ -6,14 +6,15 @@
 // neat_tpu/ops/fused_field_stash.py:_bwd_stash_kernel; the math is
 // field_bwd_rowlocal_plain of ops/fused_field_stash.py.
 //
-// What bounds it: operations (1.98 M row-local MACs a point, 0.40 ms at the
-// bf16 rate for 100,352 points) against 3.4 KB of stash and inputs read and
-// 25.7 KB of workspace written a point (0.77 + 0.10 ms at 3.35 TB/s): bytes.
-// What the design does: each warp keeps a 32 x 32 block of a product's sums in
-// tensor-core fragments and reads its A rows (bf16 values held as f32 in
-// shared memory) and the weights (the transposed copy, from L2) straight
-// into fragments; everything else, the epilogues, the tangent scratch and the
-// partials of the bias gradients, is the scalar tile's.
+// What bounds it: bytes. A point reads 9.3 KB of stash and inputs and writes
+// 25.7 KB of workspace (1.06 ms for 100,352 points at 3.35 TB/s); its 1.98 M
+// row-local MACs take 0.40 ms at the bf16 rate. What the design does: each
+// warp keeps a 32 x 32 block of a product's sums in tensor-core fragments and
+// reads its A rows (bf16 values held as f32 in shared memory) and the weights
+// (the transposed copy, from L2) straight into fragments; everything else,
+// the epilogues, the tangent scratch and the partials of the bias gradients,
+// is the scalar tile's, which now takes most of the time
+// (tools/field_bwd_parts.py).
 #include "field_tile.cuh"
 #include "mma_tile.cuh"
 

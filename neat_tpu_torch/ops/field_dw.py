@@ -37,7 +37,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from . import _build
-from .fused_field import CANONICAL_SHAPES, N_IMPLICIT_LAYERS
+from .fused_field import CANONICAL_SHAPES, N_IMPLICIT_LAYERS, _n_param_grads, _n_sm
 
 WS_CHUNK = 64  # points of one k chunk of the GEMM (128 bytes of bf16)
 TILE_M, TILE_N = 128, 256  # the GEMM's output tile
@@ -111,10 +111,9 @@ def unpack_workspace(ws: torch.Tensor, n: int, shapes=CANONICAL_SHAPES):
 
 
 def field_dw_plain(ws: torch.Tensor, shapes=CANONICAL_SHAPES) -> List[torch.Tensor]:
-    """The plain version of the GEMM: dW_l (in, out) in f32 (f64 for an f64
-    workspace) for every layer,
-    each the f32 sum over all its terms and points of input x cotangent
-    (layer 8: the primal term only)."""
+    """The plain version of the GEMM: dW_l (in, out) for every layer, each
+    the f32 (for an f64 workspace f64) sum over all its terms and points of
+    input x cotangent (layer 8: the primal term only)."""
     el = torch.promote_types(torch.float32, ws.dtype)
     out = []
     for m, n_, terms in dw_products(shapes):
@@ -204,7 +203,7 @@ def dw_schedule_plain(ws: torch.Tensor, n: int, n_sm: int, shapes=CANONICAL_SHAP
     return out
 
 
-_SCHEDULES = {}  # (n, n_sm, device) -> (units, tiles) on the device
+_SCHEDULES = {}  # (points rounded up, n_sm, device) -> (units, tiles) on the device
 
 
 def field_dw_kernel(ws: torch.Tensor, n: int, dparams: torch.Tensor) -> None:
@@ -212,8 +211,6 @@ def field_dw_kernel(ws: torch.Tensor, n: int, dparams: torch.Tensor) -> None:
     workspace ``ws`` of n points: every dW entry of the flat f32 gradient
     vector ``dparams`` gets the layer's sum added in place (layer 8: the
     primal term). CUDA tensors only."""
-    from .fused_field import _n_param_grads, _n_sm
-
     np_ = ws_points(n)
     if not ws.is_cuda or ws.device != dparams.device:
         raise ValueError("the weight-gradient GEMM takes CUDA tensors on one device")
@@ -224,7 +221,7 @@ def field_dw_kernel(ws: torch.Tensor, n: int, dparams: torch.Tensor) -> None:
     if n == 0:
         return
     n_sm = _n_sm(ws)
-    key = (n, n_sm, ws.device)
+    key = (np_, n_sm, ws.device)
     if key not in _SCHEDULES:
         _SCHEDULES[key] = tuple(t.to(ws.device) for t in dw_schedule(n, n_sm))
     units, tiles = _SCHEDULES[key]

@@ -53,6 +53,16 @@ and zero cotangents and are masked out of every sum.
 The bodies of both kernels for one tile are device functions in
 ``csrc/field_tile.cuh``: the recompute pair (``fused_field``, K3) runs the
 same two bodies on a per-block scratch in place of the stash.
+
+bf16 K2-bwd is split (``field_bwd_split_plain`` is its plain version): the
+tile stores every weight-gradient operand, rounded to bf16, into a
+feature-major workspace instead of adding dW into the partials (which keep
+the bias gradients), and a GEMM on the tensor cores sums them
+(``field_dw``, ``csrc/field_dw_mma.cu``). The model's row-local pass runs
+the tile's products on the tensor cores (``csrc/field_bwd_mma.cu``); the
+same pass on the CUDA cores ("split") equals the fused scalar kernel in dx,
+dd and every bias gradient bit for bit and is the check of the other two.
+f32 keeps the fused scalar kernel.
 """
 
 from __future__ import annotations
@@ -753,13 +763,8 @@ field_bwd_rowlocal_kernel.launches = 0
 
 def _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str):
     if variant != "scalar":
-        if x.shape[0] == 0:
-            _check_operands(flat_eff, x, d, cd, (scd, sf32, rgb, grads, *cots))
-            z = torch.zeros(sum(w.numel() for w in flat_eff), dtype=torch.float32, device=x.device)
-            dparams, dx, dd = z, torch.zeros((0, 3), device=x.device), torch.zeros((0, 3), device=x.device)
-        else:
-            dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, variant)
-            DW.field_dw_kernel(ws, x.shape[0], dparams)
+        dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, variant)
+        DW.field_dw_kernel(ws, x.shape[0], dparams)
     else:
         dparams, dx, dd, _ = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant)
     return _split_param_grads(dparams, flat_eff), dx, dd
@@ -784,7 +789,7 @@ def field_bwd_stash_kernel_variant(flat_eff, x, d, scd, sf32, rgb, grads, cots, 
                                    cd, variant: str):
     """K2-bwd by one of ``BWD_VARIANTS`` on bf16 CUDA tensors, for holding the
     kernels against each other on the card; nothing on the model's path
-    calls it, and only the split variant's own kernels count their launches."""
+    calls it, and only the split variants' own kernels count their launches."""
     if cd != torch.bfloat16:
         raise TypeError("the backward variants are bf16")
     if variant not in BWD_VARIANTS:
