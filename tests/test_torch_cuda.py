@@ -103,10 +103,12 @@ def _field_inputs(n):
 
 @pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 32-point tile and 64-point chunk
 def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
-    """The split bf16 K2-bwd: dx, dd and every bias gradient equal the fused
-    scalar kernel's (the same tile code); dW within the bf16 tolerance of the
-    plain version; the GEMM within 1e-4 of field_dw_plain on the producer's
-    own workspace, and bit-equal from one call to the next."""
+    """The split bf16 K2-bwd: with the scalar row-local pass, dx, dd and every
+    bias gradient equal the fused scalar kernel's (the same tile code) and dW
+    is within the bf16 tolerance of the plain version; with the tensor-core
+    row-local pass (the model's), every output is within it; the GEMM is
+    within 1e-4 of field_dw_plain on the producer's own workspace, and
+    bit-equal from one call to the next."""
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
     cd = torch.bfloat16
@@ -119,6 +121,7 @@ def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
         args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg, cd)
         deff, dx, dd = K.field_bwd_stash_kernel_variant(*args, "split")
         deff_s, dx_s, dd_s = K.field_bwd_stash_kernel_variant(*args, "scalar")
+        deff_m, dx_m, dd_m = K.field_bwd_stash_kernel_variant(*args, "mma")
         deff_p, dx_p, dd_p = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
         _, _, _, ws = K.field_bwd_rowlocal_kernel(*args[:-1])
         dws = [torch.zeros(F._n_param_grads(), device="cuda") for _ in range(2)]
@@ -126,6 +129,9 @@ def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
             DW.field_dw_kernel(ws, n_points, g)
         plain = DW.field_dw_plain(ws)
     assert torch.equal(dx, dx_s) and torch.equal(dd, dd_s)
+    assert _err(dx_m, dx_p) < TOL[cd] and _err(dd_m, dd_p) < TOL[cd]
+    for a, b in zip(deff_m, deff_p):
+        assert _err(a, b) < TOL[cd]
     for l in range(19):
         assert torch.equal(deff[2 * l + 1], deff_s[2 * l + 1])
         assert _err(deff[2 * l], deff_p[2 * l]) < TOL[cd]
