@@ -33,11 +33,16 @@ OUT = os.path.join(REPO, "build", "field_bwd_parts")
 _NO_STORES = ("field_tile.cuh", "                                          int valid) {\n  for (int i = threadIdx.x; i < w * (TT / 8); i += NT) {",
               "                                          int valid) {\n  return;\n  for (int i = threadIdx.x; i < w * (TT / 8); i += NT) {")
 _NO_PRODUCTS = ("field_bwd_mma.cu", "  const float* As[2] = {A0, A1};\n", "  const float* As[2] = {A0, A1};\n  K = 0;\n")
+_NO_SIGMA = ("field_tile.cuh", "  return expf(-100.f * stash(scd, row, col));", "  return 0.5f;")
+_NO_ROUNDING = ("common.cuh", "__device__ __forceinline__ void round_rows(float* D, int N, float* db) {\n",
+                "__device__ __forceinline__ void round_rows(float* D, int N, float* db) {\n  N = 0;\n")
 PARTS = {
     "whole": (),
     "no_workspace_stores": (_NO_STORES,),  # emit_rows returns at once
     "no_products": (_NO_PRODUCTS,),  # every tile product sums nothing; its epilogue runs
     "no_products_no_stores": (_NO_PRODUCTS, _NO_STORES),
+    "no_sigma_reads": (_NO_SIGMA,),  # sigma' without reading the stash (exp(-100 h) = 0.5)
+    "no_cotangent_rounding": (_NO_ROUNDING,),  # round_rows (the bias sums, the bf16 rounding) does nothing
 }
 
 
