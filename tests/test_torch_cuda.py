@@ -112,7 +112,12 @@ def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
     cd = torch.bfloat16
-    x, d, cots = _field_inputs(n_points)
+    # its own generator: the draws of the tests after it stay as they were
+    gen = torch.Generator(device="cuda").manual_seed(n_points)
+    x = (torch.rand((n_points, 3), generator=gen, device="cuda") * 2 - 1) * 1.5
+    x[: n_points // 10] *= 3.2 / torch.linalg.norm(x[: n_points // 10], dim=-1, keepdim=True)
+    d = torch.nn.functional.normalize(torch.randn((n_points, 3), generator=gen, device="cuda"), dim=-1)
+    cots = tuple(torch.randn((n_points, w), generator=gen, device="cuda") for w in (1, 3, 3, 6))
     with torch.no_grad():
         flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
         out, res = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
