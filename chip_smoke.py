@@ -564,12 +564,13 @@ def k2b_bytes(n):
 def check_k2b(model, cfg, n, gen, reps, library=False):
     """The split bf16 K2-bwd on the plain forward's stash: against the fused
     scalar K2-bwd (dx, dd, every bias gradient: equal), against the plain
-    version (every output within TOL), its GEMM against field_dw_plain on the
-    producer's workspace (and against a second call: equal), the producer's
-    workspace against the plain row-local pass's (reported). With ``reps``:
-    the split K2-bwd, the scalar one, the plain version and the library route
-    timed in turns, then the producer, the GEMM and their plain versions,
-    and each kernel's device time from the profiler."""
+    version (every output within TOL), its row-local pass's workspace
+    against the plain row-local pass's (within TOL), its GEMM against
+    field_dw_plain on the producer's workspace (and against a second call:
+    equal). With ``reps``: the split K2-bwd, the scalar one, the plain
+    version and the library route timed in turns, then the producer, the
+    GEMM and their plain versions, and each kernel's device time from the
+    profiler."""
     import torch
 
     from neat_tpu_torch.ops import field_dw as DW
@@ -587,10 +588,8 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
         args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
         split = K.field_bwd_stash_kernel_variant(*args, cd, "split")
         scalar = K.field_bwd_stash_kernel_variant(*args, cd, "scalar")
-        mma = K.field_bwd_stash_kernel_variant(*args, cd, "mma")
         ref = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
-        _, _, _, ws_s = K.field_bwd_rowlocal_kernel(*args, "split")
-        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args, "mma")
+        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args)
         gemm = [torch.zeros(_n_param_grads(), device="cuda") for _ in range(2)]
         for g in gemm:
             DW.field_dw_kernel(ws, n, g)
@@ -598,41 +597,32 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
         ws_p = K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd)[0]
         torch.cuda.synchronize()
     flat_out = lambda r: (*r[0], r[1], r[2])
-    exact = [(a, b) for a, b in zip(flat_out(split), flat_out(scalar))]
-    exact = exact[1:38:2] + exact[38:]  # the 19 bias gradients, dx, dd
+    # what the row-local pass alone computes: the 19 bias gradients, dx, dd
+    rowlocal = lambda r: flat_out(r)[1:38:2] + flat_out(r)[38:]
     gemm_w = K._split_param_grads(gemm[0], flat)[0::2]
-    ops, ops_p, ops_s = (DW.unpack_workspace(w_, n) for w_ in (ws, ws_p, ws_s))
+    ops, ops_p = (DW.unpack_workspace(w_, n) for w_ in (ws, ws_p))
     rec = {
         "n": n,
-        "vs_scalar": max(float((a - b).abs().max()) for a, b in exact),
+        "vs_scalar": max(float((a - b).abs().max()) for a, b in zip(rowlocal(split), rowlocal(scalar))),
         "l2_vs_scalar": max(l2_err(a, b) for a, b in zip(flat_out(split), flat_out(scalar))),
         "err": {"dx": rel_err(split[1], ref[1]), "dd": rel_err(split[2], ref[2]),
                 "dparams": max(rel_err(a, b) for a, b in zip(split[0], ref[0]))},
         "scalar_err": {"dx": rel_err(scalar[1], ref[1]), "dd": rel_err(scalar[2], ref[2]),
                        "dparams": max(rel_err(a, b) for a, b in zip(scalar[0], ref[0]))},
-        "mma_err": {"dx": rel_err(mma[1], ref[1]), "dd": rel_err(mma[2], ref[2]),
-                    "dparams": max(rel_err(a, b) for a, b in zip(mma[0], ref[0]))},
-        "mma_vs_split": max(rel_err(a, b) for a, b in zip(flat_out(mma), flat_out(split))),
-        "mma_l2_vs_split": max(l2_err(a, b) for a, b in zip(flat_out(mma), flat_out(split))),
-        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(flat_out(mma), flat_out(ref))),
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(flat_out(split), flat_out(ref))),
+        "rowlocal_max_abs_err": max(float((a - b).abs().max()) for a, b in zip(rowlocal(split), rowlocal(ref))),
         "gemm_err": max(rel_err(a, b) for a, b in zip(gemm_w, dw_p)),
         "gemm_max_abs_err": max(float((a - b).abs().max()) for a, b in zip(gemm_w, dw_p)),
         "gemm_repeat_equal": bool(torch.equal(gemm[0], gemm[1])),
-        "ws_err": max(rel_err(ops_s[k], ops_p[k]) for k in ops),
-        "mma_ws_err": max(rel_err(ops[k], ops_p[k]) for k in ops),
-        "mma_ws_vs_split": max(rel_err(ops[k], ops_s[k]) for k in ops),
+        "ws_err": max(rel_err(ops[k], ops_p[k]) for k in ops),
         "ws_pad_zero": not bool(ws[:, n:].any()),
-        "finite": all(bool(torch.isfinite(t).all()) for t in flat_out(split) + flat_out(mma)),
+        "finite": all(bool(torch.isfinite(t).all()) for t in flat_out(split)),
     }
-    # what the row-local pass alone computes: dx, dd, the bias gradients
-    rowlocal = lambda r: flat_out(r)[1:38:2] + flat_out(r)[38:]
-    rec["rowlocal_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(rowlocal(mma), rowlocal(ref)))
-    del ops, ops_p, ops_s, ws_p, ws_s
+    del ops, ops_p, ws_p
     if reps:
         with torch.no_grad():
             timed = {
                 "ms": lambda: K.field_bwd_stash_kernel(*args, cd),
-                "split_ms": lambda: K.field_bwd_stash_kernel_variant(*args, cd, "split"),
                 "scalar_ms": lambda: K.field_bwd_stash_kernel_variant(*args, cd, "scalar"),
                 "plain_ms": lambda: K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd),
             }
@@ -652,7 +642,6 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
         with torch.no_grad():
             stages = {
                 "producer_ms": lambda: K.field_bwd_rowlocal_kernel(*args),
-                "split_producer_ms": lambda: K.field_bwd_rowlocal_kernel(*args, "split"),
                 "producer_plain_ms": lambda: K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd),
                 "gemm_ms": lambda: DW.field_dw_kernel(ws, n, g),
                 "gemm_plain_ms": lambda: DW.field_dw_plain(ws),
@@ -675,12 +664,10 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
     require(rec["finite"], f"{what}: non-finite output")
     require(rec["vs_scalar"] <= K2B_VS_SCALAR,
             f"{what}: dx, dd or a bias gradient differs from the fused scalar kernel's by {rec['vs_scalar']:.3g}")
-    for k, v in (*rec["err"].items(), *rec["mma_err"].items()):
+    for k, v in rec["err"].items():
         require(v <= TOL["bfloat16"], f"{what}: {k} err {v:.3g} > {TOL['bfloat16']}")
-    require(rec["mma_vs_split"] <= TOL["bfloat16"],
-            f"{what}: the tensor-core row-local pass differs from the scalar one by {rec['mma_vs_split']:.3g}")
-    require(rec["mma_ws_vs_split"] <= TOL["bfloat16"],
-            f"{what}: its workspace differs from the scalar producer's by {rec['mma_ws_vs_split']:.3g}")
+    require(rec["ws_err"] <= TOL["bfloat16"],
+            f"{what}: the row-local pass's workspace differs from the plain one's by {rec['ws_err']:.3g}")
     require(rec["gemm_err"] <= DW_VS_PLAIN, f"{what}: GEMM err {rec['gemm_err']:.3g} > {DW_VS_PLAIN}")
     require(rec["gemm_repeat_equal"], f"{what}: two GEMM calls on one workspace differ")
     require(rec["ws_pad_zero"], f"{what}: the workspace's padded points are not zero")
@@ -692,14 +679,11 @@ def print_k2b(r):
             f"{r['vs_scalar']:.3g}, all outputs rel L2 {r['l2_vs_scalar']:.3g}; err {json.dumps({k: float(f'{v:.3g}') for k, v in r['err'].items()})}"
             f" (scalar {json.dumps({k: float(f'{v:.3g}') for k, v in r['scalar_err'].items()})}); GEMM against "
             f"field_dw_plain {r['gemm_err']:.3g}, repeat equal {r['gemm_repeat_equal']}; workspace against the plain "
-            f"row-local pass's {r['ws_err']:.3g}; mma: err {json.dumps({k: float(f'{v:.3g}') for k, v in r['mma_err'].items()})}, "
-            f"against split {r['mma_vs_split']:.3g} (rel L2 {r['mma_l2_vs_split']:.3g}), workspace against the plain "
-            f"one's {r['mma_ws_err']:.3g}, against the scalar producer's {r['mma_ws_vs_split']:.3g}")
+            f"row-local pass's {r['ws_err']:.3g}")
     if "ms" in r:
-        line += (f"; {r['ms']:.3f} ms (split {r['split_ms']:.3f}, scalar {r['scalar_ms']:.3f}, plain {r['plain_ms']:.3f}"
+        line += (f"; {r['ms']:.3f} ms (scalar {r['scalar_ms']:.3f}, plain {r['plain_ms']:.3f}"
                  + (f", library {r['library_ms']:.3f}" if "library_ms" in r else "")
                  + f"; bound {r['bound_ms']:.3f} by {r['bound_by']}); producer {r['producer_ms']:.3f} ms "
-                 f"(scalar producer {r['split_producer_ms']:.3f}) "
                  f"(plain {r['producer_plain_ms']:.3f}; bound {r['producer_bound_ms']:.3f} by {r['producer_bound_by']}), "
                  f"GEMM {r['gemm_ms']:.3f} ms (plain {r['gemm_plain_ms']:.3f}, cuBLAS bf16 products "
                  f"{r['gemm_cublas_ms']:.3f}; bound {r['gemm_bound_ms']:.3f} by {r['gemm_bound_by']}); by kernel "
@@ -1204,7 +1188,7 @@ def eval_forward(n_rays):
 # --only <kernel>: the libraries that kernel's checks build (the kernel's
 # own and the scalar kernel it is held against)
 ONLY = {"k1": ("fused_sdf",), "k2": ("field_fwd_mma", "fused_field_stash"),
-        "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_bwd_mma", "field_dw_mma", "fused_field_stash")}
+        "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash")}
 
 
 def main() -> int:
@@ -1386,12 +1370,12 @@ def main() -> int:
         # size; and its two kernels, each with its own plain version and bound
         tb = k2b[-1]
         kernels.append(dict(
-            name="field_bwd_stash", route="cuda", source=src + "field_bwd_mma.cu + field_dw_mma.cu",
+            name="field_bwd_stash", route="cuda", source=src + "fused_field_stash.cu",
             replaces="neat_tpu/ops/fused_field_stash.py:465", launches=runs["main"]["launches"]["field_bwd_stash"],
             max_abs_err=tb["max_abs_err"], ms=tb["ms"], plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
             bound_by=tb["bound_by"], library_ms=tb["library_ms"]))
         kernels.append(dict(
-            name="field_bwd_rowlocal", route="cuda", source=src + "field_bwd_mma.cu",
+            name="field_bwd_rowlocal", route="cuda", source=src + "field_tile.cuh",
             replaces="neat_tpu/ops/fused_field_stash.py:465",
             launches=runs["main"]["launches"]["field_bwd_rowlocal"], max_abs_err=tb["rowlocal_max_abs_err"],
             ms=tb["producer_ms"], plain_ms=tb["producer_plain_ms"], bound_ms=tb["producer_bound_ms"],

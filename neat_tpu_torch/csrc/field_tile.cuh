@@ -13,27 +13,17 @@
 
 constexpr int S_ROWS = 8 * TT * 256;  // per-block scratch: the tangent pre-activations
 
-// The split backward's workspace (ops/field_dw.py, which computes the same
-// offsets): WS_ROWS bf16 rows of np points each, one row per feature of each
-// weight-gradient operand. First row of layer l's input (WS_IN), tangent
-// input (WS_TIN, implicit layers 0..7), output cotangent (WS_COT) and tangent
-// cotangent (WS_TCOT). With EMIT, the backward tile stores these operands
-// at its 32 point columns instead of adding its dW into the partials.
-constexpr int WS_IN[19] = {0, 590, 1614, 2638, 3584, 4608, 5632, 6656, 7680, 8193, 8738, 9250, 9762, 10274, 10533, 11054, 11566, 12078, 12590};
-constexpr int WS_TIN[8] = {39, 846, 1870, 2894, 3840, 4864, 5888, 6912};
-constexpr int WS_COT[19] = {78, 1102, 2126, 3150, 4096, 5120, 6144, 7168, 7936, 8482, 8994, 9506, 10018, 10530, 10798, 11310, 11822, 12334, 12846};
-constexpr int WS_TCOT[8] = {334, 1358, 2382, 3367, 4352, 5376, 6400, 7424};
-constexpr int WS_ROWS = 12852;
-template <int L> struct Ws {  // the rows of layer L's operands, as constants
-  static constexpr int in = WS_IN[L];
-  static constexpr int tin = L < 8 ? WS_TIN[L < 8 ? L : 0] : -1;
-  static constexpr int cot = WS_COT[L];
-  static constexpr int tcot = L < 8 ? WS_TCOT[L < 8 ? L : 0] : -1;
-};
-
+// The split backward's workspace: bf16 rows of np points each, one row per
+// feature of each weight-gradient operand. ops/field_dw.py defines its layout
+// (ws_row_table) and passes the first row of every operand with the launch:
+// layer l's input (in), tangent input (tin, implicit layers 0..7), output
+// cotangent (cot) and tangent cotangent (tcot). With EMIT, the backward tile
+// stores these operands at its 32 point columns instead of adding its dW into
+// the partials.
 struct WsOut {
-  __nv_bfloat16* p;  // the workspace at the tile's first point column
+  __nv_bfloat16* p;  // the workspace (in field_bwd_tile: at the tile's first point column)
   long np;           // its row length: the points rounded up to a multiple of 64
+  int in[19], tin[8], cot[19], tcot[8];
 };
 
 // workspace rows [row, row + w) at the tile's point columns <- src[t][j]
@@ -58,31 +48,6 @@ __device__ __forceinline__ void emit_rows(const WsOut& ws, int row, int w, const
 template <typename CD>
 __device__ __forceinline__ float stash(const CD* scd, long row, int col) {
   return to_f(scd[row * W_CD + col]);
-}
-
-// The backward's tile products on the tensor cores (MMA, the "mma" variant of
-// the split backward), defined in field_bwd_mma.cu, the one source that
-// instantiates them: tile_mm's contract with NA = 1 (epi(t, n, A0 M)) or
-// tile_mm2's with NA = 2 (epi(t, n, A0 M, A1 M)), M read as its transposed
-// copy MT (bf16, row n holding M[0 .. K)[n]).
-template <int NA, typename Epi>
-__device__ __forceinline__ void tile_mm_tc(const float* A0, const float* A1, int lda,
-                                           const __nv_bfloat16* __restrict__ MT, int K, int N,
-                                           Epi epi);
-
-// the backward's products: tile_mm / tile_mm2 on the CUDA cores, or (MMA) on
-// the tensor cores; M = the (K, N) matrix at ldm, MT its transposed copy
-template <typename CD, bool MMA, typename Epi>
-__device__ __forceinline__ void bwd_mm(const float* A, int lda, const CD* M, int ldm, const CD* MT,
-                                       int K, int N, Epi epi) {
-  if constexpr (MMA) tile_mm_tc<1>(A, A, lda, MT, K, N, epi);
-  else tile_mm<CD>(A, lda, M, ldm, K, N, epi);
-}
-template <typename CD, bool MMA, typename Epi>
-__device__ __forceinline__ void bwd_mm2(const float* A, const float* B, int lda, const CD* M, int ldm,
-                                        const CD* MT, int K, int N, Epi epi) {
-  if constexpr (MMA) tile_mm_tc<2>(A, B, lda, MT, K, N, epi);
-  else tile_mm2<CD>(A, B, lda, M, ldm, K, N, epi);
 }
 
 // 1 - sigma'(z) = exp(-100 i) for a stashed softplus-100 post-activation i
@@ -300,19 +265,19 @@ __device__ __forceinline__ void field_fwd_tile(const float* __restrict__ x,
 
 // a head's hidden layer L going down: dW_L += post_{L-1}^T delta_L, then
 // delta_{L-1} = (delta_L W_L^T) * (post_{L-1} > 0), with its bias gradient
-template <int L, typename CD, bool EMIT = false, bool MMA = false>
-__device__ __forceinline__ void head_bwd_step(float*& Dr, float* BA, float*& Dn, const CD* W,
-                                              const CD* WT, float* Gp, const CD* scd, int col,
-                                              long row0, int valid, const WsOut& ws) {
+template <int L, typename CD, bool EMIT = false>
+__device__ __forceinline__ void head_bwd_step(float*& Dr, float* BA, float*& Dn, const CD* WT,
+                                              float* Gp, const CD* scd, int col, long row0,
+                                              int valid, const WsOut& ws) {
   load_stash<CD>(BA, scd, row0, valid, col, 256);
   __syncthreads();
   if constexpr (EMIT) {
-    emit_rows(ws, Ws<L>::in, 256, BA, LDH, valid);
-    emit_rows(ws, Ws<L>::cot, Lyr<L>::out, Dr, LDH, valid);
+    emit_rows(ws, ws.in[L], 256, BA, LDH, valid);
+    emit_rows(ws, ws.cot[L], Lyr<L>::out, Dr, LDH, valid);
   } else {
     tile_wgrad(Gp + Lyr<L>::g, 256, Lyr<L>::out, BA, LDH, Dr, LDH, nullptr, 0, nullptr, 0);
   }
-  bwd_mm<CD, MMA>(Dr, LDH, WT + Lyr<L>::w, 256, W + Lyr<L>::w, Lyr<L>::out, 256, [&](int t, int j, float v) {
+  tile_mm<CD>(Dr, LDH, WT + Lyr<L>::w, 256, Lyr<L>::out, 256, [&](int t, int j, float v) {
     Dn[t * LDH + j] = BA[t * LDH + j] > 0.f ? v : 0.f;
   });
   __syncthreads();
@@ -324,35 +289,34 @@ __device__ __forceinline__ void head_bwd_step(float*& Dr, float* BA, float*& Dn,
 
 // the whole head backward; Dr holds the output layer's rounded delta on entry.
 // Returns the buffer holding the f32 cotangent of the head input.
-template <int L0, typename CD, bool EMIT = false, bool MMA = false>
+template <int L0, typename CD, bool EMIT = false>
 __device__ __forceinline__ float* head_bwd(float* Dr, float* BA, float* Dn, int mv, int col,
-                                           const CD* W, const CD* WT, float* Gp, const CD* scd, long row0,
+                                           const CD* WT, float* Gp, const CD* scd, long row0,
                                            int valid, const float* X, const float* Dv,
                                            const float* Gr, const float* F, const WsOut& ws) {
-  head_bwd_step<L0 + 4, CD, EMIT, MMA>(Dr, BA, Dn, W, WT, Gp, scd, col + 768, row0, valid, ws);
-  head_bwd_step<L0 + 3, CD, EMIT, MMA>(Dr, BA, Dn, W, WT, Gp, scd, col + 512, row0, valid, ws);
-  head_bwd_step<L0 + 2, CD, EMIT, MMA>(Dr, BA, Dn, W, WT, Gp, scd, col + 256, row0, valid, ws);
-  head_bwd_step<L0 + 1, CD, EMIT, MMA>(Dr, BA, Dn, W, WT, Gp, scd, col, row0, valid, ws);
+  head_bwd_step<L0 + 4, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col + 768, row0, valid, ws);
+  head_bwd_step<L0 + 3, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col + 512, row0, valid, ws);
+  head_bwd_step<L0 + 2, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col + 256, row0, valid, ws);
+  head_bwd_step<L0 + 1, CD, EMIT>(Dr, BA, Dn, WT, Gp, scd, col, row0, valid, ws);
   head_input<CD>(BA, mv, X, Dv, Gr, F, W_F32, valid);
   if constexpr (EMIT) {
-    emit_rows(ws, Ws<L0>::in, Lyr<L0>::in, BA, LDH, valid);
-    emit_rows(ws, Ws<L0>::cot, 256, Dr, LDH, valid);
+    emit_rows(ws, ws.in[L0], Lyr<L0>::in, BA, LDH, valid);
+    emit_rows(ws, ws.cot[L0], 256, Dr, LDH, valid);
   } else {
     tile_wgrad(Gp + Lyr<L0>::g, Lyr<L0>::in, 256, BA, LDH, Dr, LDH, nullptr, 0, nullptr, 0);
   }
-  bwd_mm<CD, MMA>(Dr, LDH, WT + Lyr<L0>::w, Lyr<L0>::in, W + Lyr<L0>::w, 256, Lyr<L0>::in,
-                  [&](int t, int j, float v) { Dn[t * LDH + j] = v; });
+  tile_mm<CD>(Dr, LDH, WT + Lyr<L0>::w, Lyr<L0>::in, 256, Lyr<L0>::in,
+              [&](int t, int j, float v) { Dn[t * LDH + j] = v; });
   __syncthreads();
   return Dn;
 }
 
 // one tangent-forward layer: zdot_L = hdot_L W_L (kept in the scratch),
 // hdot_{L+1} = rnd(sigma'_L zdot_L)
-template <int L, typename CD, bool MMA = false>
+template <int L, typename CD>
 __device__ __forceinline__ void tangent_layer(const float* src, int lds, float* dst, const CD* W,
-                                              const CD* WT, float* ZD, const CD* scd, long row0,
-                                              int valid) {
-  bwd_mm<CD, MMA>(src, lds, W + Lyr<L>::w, Lyr<L>::out, WT + Lyr<L>::w, Lyr<L>::in, Lyr<L>::out,
+                                              float* ZD, const CD* scd, long row0, int valid) {
+  tile_mm<CD>(src, lds, W + Lyr<L>::w, Lyr<L>::out, Lyr<L>::in, Lyr<L>::out,
               [&](int t, int j, float z) {
                 ZD[L * TT * 256 + t * 256 + j] = z;
                 const float s = t < valid ? 1.f - em100(scd, row0 + t, soff(L) + j) : 0.f;
@@ -364,22 +328,21 @@ __device__ __forceinline__ void tangent_layer(const float* src, int lds, float* 
 // one layer of the combined primal + tangent reverse sweep. On entry Vr, VDr
 // hold layer L's rounded output cotangents and A1, A2 its primal and tangent
 // inputs; on exit (L > 0) the same roles for layer L - 1.
-template <int L, typename CD, bool EMIT = false, bool MMA = false>
+template <int L, typename CD, bool EMIT = false>
 __device__ __forceinline__ void sweep_layer(float*& Vr, float*& VDr, float*& A1, float*& A2,
                                             const float* Ec, const float* EDc, float* CE,
-                                            float* CED, const CD* W, const CD* WT, float* Gp,
-                                            const float* ZD,
+                                            float* CED, const CD* WT, float* Gp, const float* ZD,
                                             const CD* scd, long row0, int valid, const WsOut& ws) {
   constexpr int in = Lyr<L>::in, out = Lyr<L>::out;
   if constexpr (EMIT && L < 8) {
-    emit_rows(ws, Ws<L>::in, in, L == 0 ? Ec : A1, L == 0 ? LDE : LDH, valid);
-    emit_rows(ws, Ws<L>::tin, in, L == 0 ? EDc : A2, L == 0 ? LDE : LDH, valid);
-    emit_rows(ws, Ws<L>::cot, out, Vr, LDH, valid);
-    emit_rows(ws, Ws<L>::tcot, out, VDr, LDH, valid);
+    emit_rows(ws, ws.in[L], in, L == 0 ? Ec : A1, L == 0 ? LDE : LDH, valid);
+    emit_rows(ws, ws.tin[L], in, L == 0 ? EDc : A2, L == 0 ? LDE : LDH, valid);
+    emit_rows(ws, ws.cot[L], out, Vr, LDH, valid);
+    emit_rows(ws, ws.tcot[L], out, VDr, LDH, valid);
   }
   if constexpr (L == 0) {
     if constexpr (!EMIT) tile_wgrad(Gp + Lyr<0>::g, in, out, Ec, LDE, Vr, LDH, EDc, LDE, VDr, LDH);
-    bwd_mm2<CD, MMA>(Vr, VDr, LDH, WT + Lyr<0>::w, in, W + Lyr<0>::w, out, in, [&](int t, int j, float u, float ud) {
+    tile_mm2<CD>(Vr, VDr, LDH, WT + Lyr<0>::w, in, out, in, [&](int t, int j, float u, float ud) {
       CE[t * LDE + j] += u;
       CED[t * LDE + j] += ud;
     });
@@ -389,8 +352,8 @@ __device__ __forceinline__ void sweep_layer(float*& Vr, float*& VDr, float*& A1,
       // the tangent seed is one-hot on the sdf channel (valid rows only):
       // its dW is column 0 alone
       if constexpr (EMIT) {
-        emit_rows(ws, Ws<8>::in, in, A1, LDH, valid);
-        emit_rows(ws, Ws<8>::cot, out, Vr, LDH, valid);
+        emit_rows(ws, ws.in[8], in, A1, LDH, valid);
+        emit_rows(ws, ws.cot[8], out, Vr, LDH, valid);
       } else {
         tile_wgrad(Gp + Lyr<8>::g, in, out, A1, LDH, Vr, LDH, nullptr, 0, nullptr, 0);
       }
@@ -431,11 +394,11 @@ __device__ __forceinline__ void sweep_layer(float*& Vr, float*& VDr, float*& A1,
     };
     if constexpr (L == 8) {
       // ... and its transposed product is W_8's sdf column
-      bwd_mm<CD, MMA>(Vr, LDH, WT + Lyr<8>::w, in, W + Lyr<8>::w, out, in, [&](int t, int j, float u) {
+      tile_mm<CD>(Vr, LDH, WT + Lyr<8>::w, in, out, in, [&](int t, int j, float u) {
         epi(t, j, u, VDr[t * LDH] * to_f(WT[Lyr<8>::w + j]));
       });
     } else {
-      bwd_mm2<CD, MMA>(Vr, VDr, LDH, WT + Lyr<L>::w, in, W + Lyr<L>::w, out, in, epi);
+      tile_mm2<CD>(Vr, VDr, LDH, WT + Lyr<L>::w, in, out, in, epi);
     }
     __syncthreads();
     constexpr int wv = L == 4 ? 217 : in;
@@ -486,15 +449,15 @@ __device__ __forceinline__ void sweep_layer(float*& Vr, float*& VDr, float*& A1,
 // __restrict__: the recompute kernel rewrites them between tiles. Gp is this
 // block's partial of the parameter gradients, ZD its S_ROWS floats of scratch.
 // smem: BWD_SMEM bytes. Ends with a barrier.
-template <typename CD, bool EMIT = false, bool MMA = false>
+template <typename CD, bool EMIT = false>
 __device__ __forceinline__ void field_bwd_tile(
     const float* __restrict__ x, const float* __restrict__ d, const CD* scd, const float* sf32,
     const float* rgb, const float* grads, const float* __restrict__ c_sdf,
     const float* __restrict__ c_g, const float* __restrict__ c_rgb,
     const float* __restrict__ c_att, const CD* __restrict__ W, const CD* __restrict__ WT,
     float* __restrict__ dx_out, float* __restrict__ dd_out, float* Gp, float* ZD, long row0,
-    int valid, float radius, float scale, float* smem, WsOut ws_all = WsOut{nullptr, 0}) {
-  const WsOut ws{EMIT ? ws_all.p + row0 : nullptr, ws_all.np};  // the tile's point columns
+    int valid, float radius, float scale, float* smem, WsOut ws = WsOut{}) {
+  if constexpr (EMIT) ws.p += row0;  // the tile's point columns
   float* X = smem;                             // TT x 4 points
   float* Dv = X + TT * 4;                      // TT x 4 directions
   float* Gr = Dv + TT * 4;                     // TT x 4 forward spatial gradients
@@ -562,7 +525,7 @@ __device__ __forceinline__ void field_bwd_tile(
   __syncthreads();
   round_rows<CD>(B0, 3, Gp + Lyr<13>::db);
   float* cot_r =
-      head_bwd<9, CD, EMIT, MMA>(B0, B1, B2, 4, S_RENDER, W, WT, Gp, scd, s0, valid, X, Dv, Gr, F, ws);
+      head_bwd<9, CD, EMIT>(B0, B1, B2, 4, S_RENDER, WT, Gp, scd, s0, valid, X, Dv, Gr, F, ws);
   float* free_r = cot_r == B2 ? B0 : B2;
   for (int i = tid; i < TT * 6; i += NT) {
     const int t = i / 6, j = i % 6;
@@ -571,7 +534,7 @@ __device__ __forceinline__ void field_bwd_tile(
   __syncthreads();
   round_rows<CD>(free_r, 6, Gp + Lyr<18>::db);
   float* cot_a =
-      head_bwd<14, CD, EMIT, MMA>(free_r, B1, B3, 0, S_ATTR, W, WT, Gp, scd, s0, valid, X, Dv, Gr, F, ws);
+      head_bwd<14, CD, EMIT>(free_r, B1, B3, 0, S_ATTR, WT, Gp, scd, s0, valid, X, Dv, Gr, F, ws);
 
   // cot_r: [x 3, PE4(d) 27, grads 3, feats 256]; cot_a: [x 3, d 3, grads 3, feats 256]
   if (tid < TT) {
@@ -627,15 +590,15 @@ __device__ __forceinline__ void field_bwd_tile(
   float* T1 = rest[2];
 
   // ---- tangent forward over the stashed activations (xdot = Cg_mlp) ----
-  tangent_layer<0, CD, MMA>(EDc, LDE, T0, W, WT, ZD, scd, s0, valid);
-  tangent_layer<1, CD, MMA>(T0, LDH, T1, W, WT, ZD, scd, s0, valid);
-  tangent_layer<2, CD, MMA>(T1, LDH, T0, W, WT, ZD, scd, s0, valid);
-  tangent_layer<3, CD, MMA>(T0, LDH, T1, W, WT, ZD, scd, s0, valid);
+  tangent_layer<0, CD>(EDc, LDE, T0, W, ZD, scd, s0, valid);
+  tangent_layer<1, CD>(T0, LDH, T1, W, ZD, scd, s0, valid);
+  tangent_layer<2, CD>(T1, LDH, T0, W, ZD, scd, s0, valid);
+  tangent_layer<3, CD>(T0, LDH, T1, W, ZD, scd, s0, valid);
   skip_concat<CD>(T1, EDc, T0);
-  tangent_layer<4, CD, MMA>(T0, LDH, T1, W, WT, ZD, scd, s0, valid);
-  tangent_layer<5, CD, MMA>(T1, LDH, T0, W, WT, ZD, scd, s0, valid);
-  tangent_layer<6, CD, MMA>(T0, LDH, T1, W, WT, ZD, scd, s0, valid);
-  tangent_layer<7, CD, MMA>(T1, LDH, T0, W, WT, ZD, scd, s0, valid);  // T0 = tangent input of layer 8
+  tangent_layer<4, CD>(T0, LDH, T1, W, ZD, scd, s0, valid);
+  tangent_layer<5, CD>(T1, LDH, T0, W, ZD, scd, s0, valid);
+  tangent_layer<6, CD>(T0, LDH, T1, W, ZD, scd, s0, valid);
+  tangent_layer<7, CD>(T1, LDH, T0, W, ZD, scd, s0, valid);  // T0 = tangent input of layer 8
   for (int i = tid; i < TT * LDH; i += NT) {
     const int t = i / LDH, j = i % LDH;
     seed_vd[i] = (j == 0 && t < valid) ? 1.f : 0.f;
@@ -648,15 +611,15 @@ __device__ __forceinline__ void field_bwd_tile(
   float* VDr = seed_vd;
   float* A1 = T1;
   float* A2 = T0;
-  sweep_layer<8, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<7, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<6, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<5, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<4, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<3, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<2, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<1, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
-  sweep_layer<0, CD, EMIT, MMA>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, W, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<8, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<7, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<6, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<5, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<4, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<3, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<2, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<1, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
+  sweep_layer<0, CD, EMIT>(Vr, VDr, A1, A2, Ec, EDc, CE, CED, WT, Gp, ZD, scd, s0, valid, ws);
 
   // ---- dx: PE transposes and the sphere branch ----
   if (tid < valid) {

@@ -84,7 +84,7 @@ static int bwd(const void* x, const void* d, const void* scd, const void* sf32, 
                const void* grads, const void* c_sdf, const void* c_g, const void* c_rgb,
                const void* c_att, const void* w, const void* wt, void* dx, void* dd,
                void* dparams, void* partials, void* scratch, int n, int max_blocks, float radius,
-               float scale, void* stream, WsOut ws = WsOut{nullptr, 0}) {
+               float scale, void* stream, WsOut ws = WsOut{}) {
   const int n_blocks = persistent_blocks(n, max_blocks);
   cudaError_t err = cudaFuncSetAttribute(field_bwd_stash_kernel<CD, EMIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -131,17 +131,23 @@ extern "C" int field_bwd_stash_f32(BWD_ARGS) {
 }
 
 // the split backward's row-local pass (bf16): as field_bwd_stash_bf16, and
-// the weight-gradient operands into the workspace ws (WS_ROWS rows of ws_np
-// points; ws_np a multiple of 64, the columns past the tiles zeroed by the
-// caller), whose GEMM then adds dW into dparams
+// the weight-gradient operands into the workspace ws (ws_np points a row;
+// ws_np a multiple of 64, the columns past the tiles zeroed by the caller),
+// whose GEMM then adds dW into dparams. ws_rows: the first row of each
+// operand, as WsOut orders them (ops/field_dw.py:ws_row_table).
 extern "C" int field_bwd_split_bf16(const void* x, const void* d, const void* scd, const void* sf32,
                                     const void* rgb, const void* grads, const void* c_sdf,
                                     const void* c_g, const void* c_rgb, const void* c_att,
                                     const void* w, const void* wt, void* dx, void* dd,
-                                    void* dparams, void* partials, void* scratch, void* ws, int n,
-                                    int max_blocks, int ws_np, float radius, float scale,
-                                    void* stream) {
+                                    void* dparams, void* partials, void* scratch, void* ws,
+                                    const int* ws_rows, int n, int max_blocks, int ws_np,
+                                    float radius, float scale, void* stream) {
+  WsOut out{(__nv_bfloat16*)ws, (long)ws_np};
+  int* rows[] = {out.in, out.tin, out.cot, out.tcot};
+  const int counts[] = {19, 8, 19, 8};
+  for (int k = 0, at = 0; k < 4; at += counts[k++])
+    for (int i = 0; i < counts[k]; ++i) rows[k][i] = ws_rows[at + i];
   return bwd<__nv_bfloat16, true>(x, d, scd, sf32, rgb, grads, c_sdf, c_g, c_rgb, c_att, w, wt,
                                   dx, dd, dparams, partials, scratch, n, max_blocks, radius, scale,
-                                  stream, WsOut{(__nv_bfloat16*)ws, (long)ws_np});
+                                  stream, out);
 }

@@ -14,9 +14,10 @@ The workspace: one (WS_ROWS, np) array in the compute dtype, np the points
 rounded up to a multiple of WS_CHUNK. Each operand is a block of rows, one
 row per feature, each row holding the points contiguously (feature-major),
 so the GEMM reads both operands K-major. Padded points are zeros in every
-operand. The operands go layer by layer, in the order ``ws_operands`` gives;
-``csrc/field_tile.cuh`` (the producer) hard-codes the canonical offsets
-under the same names.
+operand. The operands go layer by layer, in the order ``ws_operands`` gives.
+This module is the one definition of the layout: the producer
+(``csrc/field_tile.cuh``) takes the first row of each operand with its
+launch, from ``ws_row_table``.
 
 What bounds the GEMM on the H100: bytes at the main path's size. It does
 1.52 M MACs a point (0.31 ms at the bf16 rate for 100,352 points) and reads
@@ -76,6 +77,17 @@ def ws_rows(shapes=CANONICAL_SHAPES) -> Dict[Tuple[str, int], int]:
 
 WS_ROW = ws_rows()
 WS_ROWS = sum(r for _, r in ws_operands())  # 12,852 bf16 values a point
+
+
+def ws_row_table() -> List[int]:
+    """The first rows the producer takes (its ``WsOut``): every layer's input,
+    the tangent inputs of layers 0..7, every layer's cotangent, the tangent
+    cotangents of layers 0..7, each group in layer order."""
+    n_tangent = N_IMPLICIT_LAYERS - 1
+    return ([WS_ROW["in", l] for l in range(len(CANONICAL_SHAPES))]
+            + [WS_ROW["tin", l] for l in range(n_tangent)]
+            + [WS_ROW["cot", l] for l in range(len(CANONICAL_SHAPES))]
+            + [WS_ROW["tcot", l] for l in range(n_tangent)])
 
 
 def dw_products(shapes=CANONICAL_SHAPES):

@@ -58,11 +58,10 @@ bf16 K2-bwd is split (``field_bwd_split_plain`` is its plain version): the
 tile stores every weight-gradient operand, rounded to bf16, into a
 feature-major workspace instead of adding dW into the partials (which keep
 the bias gradients), and a GEMM on the tensor cores sums them
-(``field_dw``, ``csrc/field_dw_mma.cu``). The model's row-local pass runs
-the tile's products on the tensor cores (``csrc/field_bwd_mma.cu``); the
-same pass on the CUDA cores ("split") equals the fused scalar kernel in dx,
-dd and every bias gradient bit for bit and is the check of the other two.
-f32 keeps the fused scalar kernel.
+(``field_dw``, ``csrc/field_dw_mma.cu``). Its row-local pass is the scalar
+tile with its ``tile_wgrad`` calls replaced by those stores, so it equals
+the fused scalar kernel in dx, dd and every bias gradient bit for bit. f32
+keeps the fused scalar kernel.
 """
 
 from __future__ import annotations
@@ -692,19 +691,18 @@ def _bwd_layout(n: int, max_blocks: int):
     return blocks.value, n_params.value, scratch.value
 
 
-# the bf16 backwards. Split: a row-local pass writes the weight-gradient
-# operands into a workspace and the GEMM of ``field_dw`` sums them; its
-# row-local pass on the tensor cores ("mma", csrc/field_bwd_mma.cu: the model's)
-# or on the CUDA cores ("split", the scalar tile). "scalar": the fused scalar
-# kernel, which f32 runs and which K3-bwd is held against.
-BWD_VARIANTS = ("mma", "split", "scalar")
-_ROWLOCAL_ENTRY = {"mma": ("field_bwd_mma", "field_bwd_mma"), "split": ("fused_field_stash", "field_bwd_split")}
+# the bf16 backwards. "split" (the model's): the row-local pass, the scalar
+# tile, writes the weight-gradient operands into a workspace and the GEMM of
+# ``field_dw`` sums them. "scalar": the fused scalar kernel, which f32 runs
+# and which K3-bwd is held against.
+BWD_VARIANTS = ("split", "scalar")
+_WS_ROW_TABLE = (ctypes.c_int * len(DW.ws_row_table()))(*DW.ws_row_table())  # the producer's WsOut rows
 
 
 def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str):
     """K2-bwd's tile kernel and the sum of its per-block partials: (dparams,
     dx, dd, workspace). "scalar" (fused): dparams holds every gradient,
-    workspace is None. "split" or "mma": dparams holds the bias gradients and
+    workspace is None. "split": dparams holds the bias gradients and
     layer 8's tangent column, its other dW entries 0; the workspace
     (``field_dw``) holds the weight-gradient operands."""
     n = x.shape[0]
@@ -726,15 +724,15 @@ def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, 
     P = _build.ptr
     args = (P(x), P(d), P(scd), P(sf32), P(rgb), P(grads), *(P(c) for c in cots),
             P(w_all), P(wt_all), P(dx), P(dd), P(dparams), P(partials), P(scratch))
-    if variant != "scalar":
+    if variant == "split":
         width = DW.ws_points(n)
         ws = torch.empty((DW.WS_ROWS, width), dtype=torch.bfloat16, **kw)
         covered = -(-n // 32) * 32  # the 32-point tiles write every column before this
         if covered < width:
             ws[:, covered:].zero_()
-        err = _entry(*_ROWLOCAL_ENTRY[variant], cd, 18, 3)(
-            *args, P(ws), n, n_sm, width, icfg.sdf_bounding_sphere, icfg.sphere_scale,
-            _build.stream_ptr(x),
+        err = _entry("fused_field_stash", "field_bwd_split", cd, 19, 3)(
+            *args, P(ws), ctypes.cast(_WS_ROW_TABLE, ctypes.c_void_p), n, n_sm, width,
+            icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
         )
     else:
         ws = None
@@ -745,15 +743,11 @@ def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, 
     return dparams, dx, dd, ws
 
 
-def field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig,
-                              variant: str = "mma"):
-    """Launch the split K2-bwd's row-local pass (bf16), on the tensor cores
-    ("mma") or the CUDA cores ("split"): -> (dparams, dx, dd, workspace), as
-    ``_bwd_rowlocal_launch`` describes them; its plain version is
-    ``field_bwd_rowlocal_plain``."""
-    if variant not in _ROWLOCAL_ENTRY:
-        raise ValueError(f"no row-local pass {variant!r}")
-    out = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, torch.bfloat16, variant)
+def field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig):
+    """Launch the split K2-bwd's row-local pass (bf16): -> (dparams, dx, dd,
+    workspace), as ``_bwd_rowlocal_launch`` describes them; its plain version
+    is ``field_bwd_rowlocal_plain``."""
+    out = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, torch.bfloat16, "split")
     field_bwd_rowlocal_kernel.launches += 1
     return out
 
@@ -762,8 +756,8 @@ field_bwd_rowlocal_kernel.launches = 0
 
 
 def _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str):
-    if variant != "scalar":
-        dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, variant)
+    if variant == "split":
+        dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg)
         DW.field_dw_kernel(ws, x.shape[0], dparams)
     else:
         dparams, dx, dd, _ = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant)
@@ -773,11 +767,10 @@ def _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: 
 def field_bwd_stash_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig, cd):
     """Launch K2-bwd: -> (deff (38 f32 tensors shaped like flat_eff), dx (N,3),
     dd (N,3)). ``cots`` are the contiguous f32 cotangents (N,1), (N,3), (N,3),
-    (N,6). bf16 runs the split backward with its row-local pass on the tensor
-    cores ("mma", then the weight-gradient GEMM of ``field_dw``), f32 the
-    fused scalar kernel."""
+    (N,6). bf16 runs the split backward (its row-local pass, then the
+    weight-gradient GEMM of ``field_dw``), f32 the fused scalar kernel."""
     out = _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd,
-                      "mma" if cd == torch.bfloat16 else "scalar")
+                      "split" if cd == torch.bfloat16 else "scalar")
     field_bwd_stash_kernel.launches += 1
     return out
 
@@ -789,7 +782,7 @@ def field_bwd_stash_kernel_variant(flat_eff, x, d, scd, sf32, rgb, grads, cots, 
                                    cd, variant: str):
     """K2-bwd by one of ``BWD_VARIANTS`` on bf16 CUDA tensors, for holding the
     kernels against each other on the card; nothing on the model's path
-    calls it, and only the split variants' own kernels count their launches."""
+    calls it, and only the split variant's own kernels count their launches."""
     if cd != torch.bfloat16:
         raise TypeError("the backward variants are bf16")
     if variant not in BWD_VARIANTS:

@@ -12,9 +12,13 @@ neighbouring bf16 value. K3-bwd re-runs its forward, so against autograd
 of ``field_math`` a relu that an f32 sum in another order moves across 0
 changes a point's whole backward: it is held entrywise (1e-6) against
 K2-fwd + K2-bwd, which share its tile bodies, and in relative L2 norm (f32
-5e-3, bf16 0.15) against autograd. K4: rays whose beta differs (one flipped
-``err <= eps`` decision) may be 0.5% of the rays; the others agree to rtol
-2e-4 / atol 2e-5.
+5e-3, bf16 0.15) against autograd; in f32 also against autograd in f64
+over eight draws, in relative L2 norm off the crossings (1e-5), with every point
+that is off explained by one. K4: rays
+whose beta differs (one flipped ``err <= eps`` decision) may be 0.5% of the
+rays; the others agree to rtol 2e-4 / atol 2e-5.
+
+Every test draws its inputs from its own seeded generator.
 """
 
 import pytest
@@ -50,11 +54,15 @@ def _err(a, b):
     return float((a.float() - b.float()).abs().max()) / max(1e-12, float(b.float().abs().max()))
 
 
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
 @pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 32- and 128-point tiles
 @pytest.mark.parametrize("cd", DTYPES)
 def test_k1_kernel_matches_plain(setup, cd, n_points):
     cfg, model = setup
-    pts = (torch.rand((n_points, 3), device="cuda") * 2 - 1) * 3.0
+    pts = (torch.rand((n_points, 3), generator=_gen(n_points), device="cuda") * 2 - 1) * 3.0
     with torch.no_grad():
         emb = positional_encoding(pts, 6).to(cd).contiguous()
         ws, bs = _effective_weights(model.implicit, cfg.implicit, cd)
@@ -72,11 +80,7 @@ def test_k1_kernel_matches_plain(setup, cd, n_points):
 def test_k2_kernels_match_plain(setup, cd):
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
-    n = 1000
-    x = (torch.rand((n, 3), device="cuda") * 2 - 1) * 1.5
-    x[:100] *= 3.2 / torch.linalg.norm(x[:100], dim=-1, keepdim=True)
-    d = torch.nn.functional.normalize(torch.randn((n, 3), device="cuda"), dim=-1)
-    cots = tuple(torch.randn((n, w), device="cuda") for w in (1, 3, 3, 6))
+    x, d, cots = _field_inputs(1000, seed=0)
     with torch.no_grad():
         flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
         got = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
@@ -94,52 +98,52 @@ def test_k2_kernels_match_plain(setup, cd):
         assert _err(a, b) < TOL[cd]
 
 
-def _field_inputs(n):
-    x = (torch.rand((n, 3), device="cuda") * 2 - 1) * 1.5
+def _field_inputs(n, seed):
+    """Points (a tenth of them outside the bounding sphere, where the clamp
+    is active), unit directions and the four cotangents, from ``seed``."""
+    gen = _gen(seed)
+    x = (torch.rand((n, 3), generator=gen, device="cuda") * 2 - 1) * 1.5
     x[: n // 10] *= 3.2 / torch.linalg.norm(x[: n // 10], dim=-1, keepdim=True)
-    d = torch.nn.functional.normalize(torch.randn((n, 3), device="cuda"), dim=-1)
-    return x, d, tuple(torch.randn((n, w), device="cuda") for w in (1, 3, 3, 6))
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device="cuda"), dim=-1)
+    return x, d, tuple(torch.randn((n, w), generator=gen, device="cuda") for w in (1, 3, 3, 6))
 
 
 @pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 32-point tile and 64-point chunk
 def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
-    """The split bf16 K2-bwd: with the scalar row-local pass, dx, dd and every
-    bias gradient equal the fused scalar kernel's (the same tile code) and dW
-    is within the bf16 tolerance of the plain version; with the tensor-core
-    row-local pass (the model's), every output is within it; the GEMM is
-    within 1e-4 of field_dw_plain on the producer's own workspace, and
-    bit-equal from one call to the next."""
+    """The split bf16 K2-bwd (the model's): dx, dd and every bias gradient
+    equal the fused scalar kernel's (the same tile code) and dW is within the
+    bf16 tolerance of the plain version; the row-local pass's workspace is
+    within it of the plain row-local pass's; the GEMM is within 1e-4 of
+    field_dw_plain on the producer's own workspace, and bit-equal from one
+    call to the next."""
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
     cd = torch.bfloat16
-    # its own generator: the draws of the tests after it stay as they were
-    gen = torch.Generator(device="cuda").manual_seed(n_points)
-    x = (torch.rand((n_points, 3), generator=gen, device="cuda") * 2 - 1) * 1.5
-    x[: n_points // 10] *= 3.2 / torch.linalg.norm(x[: n_points // 10], dim=-1, keepdim=True)
-    d = torch.nn.functional.normalize(torch.randn((n_points, 3), generator=gen, device="cuda"), dim=-1)
-    cots = tuple(torch.randn((n_points, w), generator=gen, device="cuda") for w in (1, 3, 3, 6))
+    x, d, cots = _field_inputs(n_points, seed=n_points)
     with torch.no_grad():
         flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
         out, res = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
         scd, sf32 = (r.contiguous() for r in K._pack_res(res))
         rgb, grads = out[2].contiguous(), out[1].contiguous()
-        args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg, cd)
-        deff, dx, dd = K.field_bwd_stash_kernel_variant(*args, "split")
-        deff_s, dx_s, dd_s = K.field_bwd_stash_kernel_variant(*args, "scalar")
-        deff_m, dx_m, dd_m = K.field_bwd_stash_kernel_variant(*args, "mma")
+        args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
+        deff, dx, dd = K.field_bwd_stash_kernel(*args, cd)
+        deff_s, dx_s, dd_s = K.field_bwd_stash_kernel_variant(*args, cd, "scalar")
         deff_p, dx_p, dd_p = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
-        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args[:-1])
+        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args)
+        ws_p = K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd)[0]
         dws = [torch.zeros(F._n_param_grads(), device="cuda") for _ in range(2)]
         for g in dws:
             DW.field_dw_kernel(ws, n_points, g)
         plain = DW.field_dw_plain(ws)
     assert torch.equal(dx, dx_s) and torch.equal(dd, dd_s)
-    assert _err(dx_m, dx_p) < TOL[cd] and _err(dd_m, dd_p) < TOL[cd]
-    for a, b in zip(deff_m, deff_p):
-        assert _err(a, b) < TOL[cd]
+    assert _err(dx, dx_p) < TOL[cd] and _err(dd, dd_p) < TOL[cd]
     for l in range(19):
         assert torch.equal(deff[2 * l + 1], deff_s[2 * l + 1])
         assert _err(deff[2 * l], deff_p[2 * l]) < TOL[cd]
+    ops, ops_p = DW.unpack_workspace(ws, n_points), DW.unpack_workspace(ws_p, n_points)
+    for key in ops:
+        assert _err(ops[key], ops_p[key]) < TOL[cd], key
+    assert not ws[:, n_points:].any()
     assert torch.equal(dws[0], dws[1])
     for a, b in zip(K._split_param_grads(dws[0], flat)[0::2], plain):
         assert _err(a, b) < 1e-4
@@ -149,7 +153,7 @@ def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
 def test_k3_kernels_match_plain_and_k2(setup, cd):
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
-    x, d, cots = _field_inputs(1000)
+    x, d, cots = _field_inputs(1000, seed=0)
     flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
     with torch.no_grad():
         got = F.field_fwd_kernel(flat, x, d, icfg, cd)
@@ -176,6 +180,71 @@ def test_k3_kernels_match_plain_and_k2(setup, cd):
         assert float((a - b).norm()) <= l2_tol * float(b.norm())
 
 
+def _l2(a, b):
+    return float((a.double() - b.double()).norm()) / max(1e-300, float(b.double().norm()))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_k3_f32_backward_is_f64_autograd_off_the_crossings(setup, seed, capsys):
+    """f32 K3-bwd against autograd of ``field_math`` in f64 on the same draw.
+    A crossing is a head relu or the sdf clamp whose f32 forward (K2-fwd's
+    stash: K3 runs the same tile) decides on the other side of 0 than f64:
+    there the point's whole backward changes. Every point whose own dx or dd
+    is more than 1% of the largest entry off has a crossing; each crossing
+    lies within 1e-4 of its layer's largest value of 0; on the points
+    without one, all 40 outputs are within 1e-5 of f64 in relative L2 norm.
+    Printed: f32 autograd against f64 and K3-bwd against f32 autograd on the
+    whole draw (the check of ``test_k3_kernels_match_plain_and_k2``)."""
+    cfg, model = setup
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    f32, f64 = torch.float32, torch.float64
+    x, d, cots = _field_inputs(1000, seed=seed)
+    flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+    with torch.no_grad():
+        k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, f32)
+        _, res64 = K.field_fwd_res(tuple(w.double() for w in flat), x.double(), d.double(), icfg, rcfg, f64)
+    _, _, i_r, i_a, z8, _, _ = K._unpack_res(k2[4], k2[5], k2[2], k2[1], icfg, rcfg)
+    _, _, i_r64, i_a64, z8_64, _, _ = res64
+    crossing = torch.zeros(x.shape[0], dtype=torch.bool, device="cuda")
+    margin = 0.0
+    for post, post64 in zip((*i_r, *i_a), (*i_r64, *i_a64)):
+        flip = (post > 0) != (post64 > 0)
+        crossing |= flip.any(dim=-1)
+        if flip.any():  # the pre-activation at a flip is the larger of the two posts
+            margin = max(margin, float(torch.maximum(post.double(), post64)[flip].max() / post64.max()))
+    gap, gap64 = z8[:, :1] - F._sphere(x, icfg)[1], z8_64[:, :1] - F._sphere(x.double(), icfg)[1]
+    flip = torch.sign(gap).double() != torch.sign(gap64)
+    crossing |= flip[:, 0]
+    if flip.any():
+        margin = max(margin, float(torch.maximum(gap.abs().double(), gap64.abs())[flip].max() / gap64.abs().max()))
+
+    def kernel(keep):
+        with torch.no_grad():
+            deff, dx, dd = F.field_bwd_kernel(flat, x[keep], d[keep], tuple(c[keep] for c in cots), icfg, f32)
+        return (*deff, dx, dd)
+
+    def autograd(dtype, keep):
+        leaves = [w.to(dtype).clone().requires_grad_(True) for w in (*flat, x[keep], d[keep])]
+        outs = F.field_math(leaves[:-2], leaves[-2], leaves[-1], icfg, rcfg, dtype)
+        return torch.autograd.grad(outs, leaves, tuple(c[keep].to(dtype) for c in cots))
+
+    every = torch.ones_like(crossing)
+    k_all, a32_all, a64_all = kernel(every), autograd(f32, every), autograd(f64, every)
+    off = sum((a.double() - b).abs().amax(dim=-1) > 1e-2 * b.abs().max()
+              for a, b in zip(k_all[-2:], a64_all[-2:])) > 0
+    keep = ~crossing
+    k_keep = max(_l2(a, b) for a, b in zip(kernel(keep), autograd(f64, keep)))
+    with capsys.disabled():
+        print(f"\nK3-bwd f32 seed={seed}: {int(crossing.sum())} points with a crossing (margin {margin:.3g}), "
+              f"{int(off.sum())} off; without them against f64 autograd {k_keep:.3g}; whole draw: against "
+              f"f64 {max(_l2(a, b) for a, b in zip(k_all, a64_all)):.3g}, f32 autograd against f64 "
+              f"{max(_l2(a, b) for a, b in zip(a32_all, a64_all)):.3g}, against f32 autograd "
+              f"{max(_l2(a, b) for a, b in zip(k_all, a32_all)):.3g}")
+    assert not (off & keep).any()
+    assert margin <= 1e-4
+    assert k_keep <= 1e-5
+
+
 @pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 128-point tile
 def test_tensor_core_field_forwards_match_plain(setup, n_points, capsys):
     """bf16 K2-fwd and K3-fwd (the tensor-core kernel) and their scalar
@@ -184,7 +253,7 @@ def test_tensor_core_field_forwards_match_plain(setup, n_points, capsys):
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
     cd = torch.bfloat16
-    x, d, _ = _field_inputs(n_points)
+    x, d, _ = _field_inputs(n_points, seed=n_points)
     flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
     with torch.no_grad():
         out, res = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
@@ -211,9 +280,10 @@ def test_tensor_core_field_forwards_match_plain(setup, n_points, capsys):
 @pytest.mark.parametrize("refine", [True, False])
 def test_k4_kernel_matches_plain(setup, refine):
     rays, lanes = 256, 384
-    z = torch.sort(torch.rand((rays, lanes), device="cuda") * 6.0, dim=-1).values
-    sdf = (z - 3.0).abs() - 1.5 + 0.3 * torch.randn((rays, lanes), device="cuda")
-    beta = torch.rand((rays,), device="cuda") * 0.45 + 0.05
+    gen = _gen(int(refine))
+    z = torch.sort(torch.rand((rays, lanes), generator=gen, device="cuda") * 6.0, dim=-1).values
+    sdf = (z - 3.0).abs() - 1.5 + 0.3 * torch.randn((rays, lanes), generator=gen, device="cuda")
+    beta = torch.rand((rays,), generator=gen, device="cuda") * 0.45 + 0.05
     beta0 = torch.tensor([2.1e-3], device="cuda")
     args = (0.1, 10, 0.0, refine)
     bk, wk, pk = R.fused_round_kernel(z, sdf, beta, beta0, *args)

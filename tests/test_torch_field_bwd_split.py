@@ -13,8 +13,8 @@ GEMM) through its plain versions, on the CPU.
   within 2e-2 (``test_torch_fused_field.py``'s bf16 tolerance: the cotangent
   rounded to bf16 after an f32 sum in another order can land one bf16 step
   away); and at an exact sdf_raw == sphere tie in f64.
-* the workspace: pack and unpack round trip, padded points zero, the
-  offsets equal the ones the producer hard-codes (read from the source).
+* the workspace: pack and unpack round trip, padded points zero; the row
+  table the producer takes at launch names every operand's first row.
 * the GEMM's schedule (``dw_schedule_plain``: its units and tiles run in
   plain PyTorch) covers each product once: it equals ``field_dw_plain``
   within 1e-6 at 1, 127, 129 and 1000 points.
@@ -23,7 +23,6 @@ GEMM) through its plain versions, on the CPU.
 """
 
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +33,6 @@ import torch
 import neat_tpu.ops.fused_field_stash as jfs
 import neat_tpu_torch.model.neat as tneat
 from _torch_helpers import configs, n, port_model, to_numpy
-from neat_tpu_torch.ops import _build
 from neat_tpu_torch.ops import field_dw as DW
 from neat_tpu_torch.ops import fused_field as F
 from neat_tpu_torch.ops import fused_field_stash as K
@@ -205,17 +203,22 @@ def test_workspace_round_trips(n_pts):
         DW.pack_workspace({**ops, ("cot", 3): ops["cot", 2]}, n_pts, torch.bfloat16)
 
 
-def test_workspace_offsets_match_the_producer():
-    """``csrc/field_tile.cuh`` hard-codes the first row of each operand."""
-    src = (_build.CSRC / "field_tile.cuh").read_text()
-    for kind in ("in", "tin", "cot", "tcot"):
-        m = re.search(r"WS_%s\[\d+\]\s*=\s*\{([^}]*)\}" % kind.upper(), src)
-        assert m, kind
-        got = [int(v) for v in m.group(1).split(",") if v.strip()]
-        want = [DW.WS_ROW[kind, l] for l in range(19) if (kind, l) in DW.WS_ROW]
-        assert got == want, kind
-    m = re.search(r"WS_ROWS\s*=\s*(\d+)", src)
-    assert m and int(m.group(1)) == DW.WS_ROWS
+def test_row_table_names_every_operand_once():
+    """``ws_row_table``, the producer's ``WsOut`` rows: every layer's input,
+    the tangent inputs of layers 0..7, every cotangent, the tangent
+    cotangents, each group in layer order; the operands it starts tile the
+    workspace's rows without overlap."""
+    table = DW.ws_row_table()
+    groups = [("in", 19), ("tin", 8), ("cot", 19), ("tcot", 8)]
+    assert len(table) == sum(c for _, c in groups) == 54
+    at = 0
+    for kind, count in groups:
+        assert table[at : at + count] == [DW.WS_ROW[kind, l] for l in range(count)], kind
+        at += count
+    spans = sorted((DW.WS_ROW[key], DW.WS_ROW[key] + r) for key, r in DW.ws_operands())
+    assert spans[0][0] == 0 and spans[-1][1] == DW.WS_ROWS
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert sorted(table) == [s for s, _ in spans]
 
 
 @pytest.mark.parametrize("n_pts", [1, 127, 129, 1000])
@@ -251,11 +254,10 @@ def _calls():
         "bwd_cpu": (ValueError, lambda: K.field_bwd_stash_kernel(*args, bf)),
         "split_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "split")),
         "scalar_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "scalar")),
-        "mma_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "mma")),
+        "mma_unknown": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "mma")),
         "rowlocal_cpu": (ValueError, lambda: K.field_bwd_rowlocal_kernel(*args)),
-        "rowlocal_unknown": (ValueError, lambda: K.field_bwd_rowlocal_kernel(*args, "scalar")),
         "split_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "split")),
-        "mma_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "mma")),
+        "scalar_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "scalar")),
         "unknown": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "wgmma")),
         "gemm_cpu": (ValueError, lambda: DW.field_dw_kernel(ws, n_, torch.zeros(F._n_param_grads()))),
     }
@@ -269,17 +271,3 @@ def test_bwd_variants_refuse_what_the_kernels_do_not_take(case):
     with pytest.raises(err):
         call()
     assert [f.launches for f in counters] == before
-
-
-def test_parts_tool_edits_still_apply(tmp_path, monkeypatch):
-    """``tools/field_bwd_parts.py`` switches parts of the tensor-core
-    row-local pass off by matching the kernel's source text: every edit of
-    every part still finds its one place."""
-    from neat_tpu_torch.tools import field_bwd_parts
-
-    monkeypatch.setattr(field_bwd_parts, "OUT", str(tmp_path))
-    for part, edits in field_bwd_parts.PARTS.items():
-        out = field_bwd_parts.part_sources(part)
-        for name, _, new in edits:
-            assert new in (tmp_path / part / name).read_text(), (part, name)
-        assert (tmp_path / part / "field_bwd_mma.cu").exists() and out == str(tmp_path / part)

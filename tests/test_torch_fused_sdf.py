@@ -163,17 +163,16 @@ def test_stale_marks_exactly_the_sources_that_include_a_touched_header(tmp_path,
 
 
 def test_only_fused_sdf_depends_on_the_mma_header():
-    """The tensor-core kernels (K1, the field forward, the split backward's
-    row-local pass and its weight-gradient GEMM) alone include
-    ``mma_tile.cuh``; the field forward and the GEMM do not include the
-    scalar tile, and the scalar field kernels do not reach the mma header."""
+    """The tensor-core kernels (K1, the field forward and the split
+    backward's weight-gradient GEMM) alone include ``mma_tile.cuh``; the
+    field forward and the GEMM do not include the scalar tile, and the
+    scalar field kernels do not reach the mma header."""
     reach = {name: {p.name for p in _build.dependencies(_build.CSRC / f"{name}.cu")} for name in _build.SOURCES}
     assert reach["fused_sdf"] == {"fused_sdf.cu", "common.cuh", "mma_tile.cuh"}
     assert reach["field_fwd_mma"] == {"field_fwd_mma.cu", "common.cuh", "mma_tile.cuh"}
     assert reach["field_dw_mma"] == {"field_dw_mma.cu", "mma_tile.cuh"}
-    assert reach["field_bwd_mma"] == {"field_bwd_mma.cu", "field_tile.cuh", "common.cuh", "mma_tile.cuh"}
     assert [name for name in _build.SOURCES if "mma_tile.cuh" in reach[name]] == [
-        "fused_sdf", "field_fwd_mma", "field_dw_mma", "field_bwd_mma"]
+        "fused_sdf", "field_fwd_mma", "field_dw_mma"]
     assert reach["fused_field"] == {"fused_field.cu", "field_tile.cuh", "common.cuh"}
     assert reach["fused_field_stash"] == {"fused_field_stash.cu", "field_tile.cuh", "common.cuh"}
     assert reach["fused_round"] == {"fused_round.cu"}
@@ -182,9 +181,9 @@ def test_only_fused_sdf_depends_on_the_mma_header():
 @pytest.mark.parametrize(
     "touched,stale",
     [
-        ("mma_tile.cuh", {"fused_sdf", "field_fwd_mma", "field_dw_mma", "field_bwd_mma"}),
-        ("field_tile.cuh", {"fused_field_stash", "fused_field", "field_bwd_mma"}),
-        ("common.cuh", {"fused_sdf", "fused_field_stash", "fused_field", "field_fwd_mma", "field_bwd_mma"}),
+        ("mma_tile.cuh", {"fused_sdf", "field_fwd_mma", "field_dw_mma"}),
+        ("field_tile.cuh", {"fused_field_stash", "fused_field"}),
+        ("common.cuh", {"fused_sdf", "fused_field_stash", "fused_field", "field_fwd_mma"}),
         ("field_fwd_mma.cu", {"field_fwd_mma"}),
         ("field_dw_mma.cu", {"field_dw_mma"}),
     ],
