@@ -19,7 +19,7 @@ GEMM) through its plain versions, on the CPU.
   plain PyTorch) covers each product once: it equals ``field_dw_plain``
   within 1e-6 at 1, 127, 129 and 1000 points.
 * the variant API refuses what the kernels do not take: unknown variants,
-  f32 for the split variants, CPU tensors; nothing is counted.
+  f32 for either variant, CPU tensors; nothing is counted.
 """
 
 import dataclasses
