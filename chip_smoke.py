@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only k1 # build fused_sdf.cu alone; K1's checks and timings
     python3 chip_smoke.py --only k2 # build field_fwd_mma.cu (+ the scalar K2); K2-fwd's checks and timings
     python3 chip_smoke.py --only k3 # the same for K3-fwd (+ the scalar K3)
-    python3 chip_smoke.py --only k2b # build field_dw_mma.cu and fused_field_stash.cu; the split K2-bwd's checks and timings
+    python3 chip_smoke.py --only k2b # build field_bwd_mma.cu, field_dw_mma.cu, fused_field_stash.cu; the split K2-bwd's checks and timings
+    python3 chip_smoke.py --only k3b # build K3-bwd's sources (+ the scalar K3); the bf16 K3-bwd's checks and timings
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -26,17 +27,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    scalar kernels they replaced, at 1, 127, 129 and 1000 points and, timed
    in turns with the library route, at the main path's 100,352; the split
    bf16 K2-bwd (its row-local pass writes a workspace of weight-gradient
-   operands, a tensor-core GEMM sums them) at 1, 127, 129, 1000, 4096 and
-   100,352 points: dx, dd and the bias gradients equal to the fused scalar
-   K2-bwd's, every output against the plain version, the GEMM against its
-   plain version on the same workspace and against itself, timed in turns
-   with the scalar kernel, the plain version and the library route, each
-   stage timed and profiled; K2-fwd and K2-bwd
+   operands, a tensor-core GEMM sums them) at 1, 127, 129, 1000, 4096,
+   100,352 and 168,093 points (a workspace past 2^31 elements): with the
+   scalar row-local pass ("split"), dx, dd and the
+   bias gradients equal to the fused scalar K2-bwd's; with the tensor-core
+   one ("mma", the model's), its workspace against the plain row-local
+   pass's, its dx, dd and biases against the scalar pass's; every output
+   against the plain version, the GEMM against its plain version on the
+   same workspace and against itself; timed in turns with both row-local
+   passes, the fused scalar kernel, the plain version and the library
+   route, each stage timed and profiled; K2-fwd and K2-bwd
    (dx, dd, all 38 parameter gradients) at 4096 points in f32 and bf16 and
    at the main path's 100,352 points in bf16; K3-fwd and K3-bwd (the
    recompute pair) at the same sizes, against field_math and its autograd
-   and against the K2 pair (the fused scalar K2-bwd replaying the scalar
-   K2-fwd's stash, which K3-bwd's own tiles match); K4 (the sampler round) at 1024 rays x 128 and
+   and against the K2 pair: in bf16 the split K3-bwd (chunks of 16,384
+   points) against the model's K2-fwd + K2-bwd (dx and dd exactly,
+   the gradients within 1e-4, the forward its chunks recomputed exactly
+   K2-fwd's), its "scalar" variant against the scalar K2 pair, timed in
+   turns with the scalar kernel and its plain versions; the three kernels
+   it runs on each chunk at a chunk's shape, each against its plain
+   version, timed; K4 (the sampler round) at 1024 rays x 128 and
    x 640 samples taken from a sampler run of the bench model, refine both
    ways;
 4. five full-width bf16 training steps of abc-neat-a (bench_step: 8 x 256
@@ -47,9 +57,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    its GEMM);
 5. three steps each of the two further configurations of the same entry
    point, counted the same way: bench_config(field='recompute') (K1 x5,
-   K3-fwd, K3-bwd) and bench_config(fused_rounds='on') (K4 x5, K1 x5,
-   K2-fwd, K2-bwd); and one no-grad neat_forward(training=False) on 1024
-   rays (K3-fwd, no K2);
+   K3-fwd, K3-bwd: its forward, row-local pass and GEMM x7 chunks) and
+   bench_config(fused_rounds='on') (K4 x5, K1 x5, K2-fwd, K2-bwd); and one
+   no-grad neat_forward(training=False) on 1024 rays (K3-fwd, no K2); the
+   peak device memory of a step of each path (the recompute step's must be
+   below the main step's);
 6. one step of each of the three kernel paths against the plain PyTorch path
    from the same weights, batch and noise, and the sampler's z values with
    and without K4 on the same noise.
@@ -567,10 +579,14 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
     version (every output within TOL), its row-local pass's workspace
     against the plain row-local pass's (within TOL), its GEMM against
     field_dw_plain on the producer's workspace (and against a second call:
-    equal). With ``reps``: the split K2-bwd, the scalar one, the plain
-    version and the library route timed in turns, then the producer, the
-    GEMM and their plain versions, and each kernel's device time from the
-    profiler."""
+    equal); the tensor-core row-local pass ("mma") and K2-bwd with it: its
+    workspace against the plain row-local pass's, its dx, dd and bias
+    gradients against the scalar pass's, every output of K2-bwd against the
+    plain version (each within TOL). With ``reps``: the model's K2-bwd (the
+    "mma" row-local pass), its "split" variant, the fused scalar one, the
+    plain version and the library route timed in turns, then the row-local
+    passes, the GEMM and their plain versions, and each kernel's device time
+    from the profiler."""
     import torch
 
     from neat_tpu_torch.ops import field_dw as DW
@@ -589,7 +605,10 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
         split = K.field_bwd_stash_kernel_variant(*args, cd, "split")
         scalar = K.field_bwd_stash_kernel_variant(*args, cd, "scalar")
         ref = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
-        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args)
+        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args, variant="split")
+        # the tensor-core row-local pass, alone and as the model's K2-bwd's with the GEMM
+        rl_mma = K.field_bwd_rowlocal_kernel(*args, variant="mma")
+        mma = K.field_bwd_stash_kernel(*args, cd)
         gemm = [torch.zeros(_n_param_grads(), device="cuda") for _ in range(2)]
         for g in gemm:
             DW.field_dw_kernel(ws, n, g)
@@ -600,7 +619,8 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
     # what the row-local pass alone computes: the 19 bias gradients, dx, dd
     rowlocal = lambda r: flat_out(r)[1:38:2] + flat_out(r)[38:]
     gemm_w = K._split_param_grads(gemm[0], flat)[0::2]
-    ops, ops_p = (DW.unpack_workspace(w_, n) for w_ in (ws, ws_p))
+    ops, ops_p, ops_m = (DW.unpack_workspace(w_, n) for w_ in (ws, ws_p, rl_mma[3]))
+    rl_out = lambda r: (*K._split_param_grads(r[0], flat)[1::2], r[1], r[2])  # biases, dx, dd
     rec = {
         "n": n,
         "vs_scalar": max(float((a - b).abs().max()) for a, b in zip(rowlocal(split), rowlocal(scalar))),
@@ -616,13 +636,21 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
         "gemm_repeat_equal": bool(torch.equal(gemm[0], gemm[1])),
         "ws_err": max(rel_err(ops[k], ops_p[k]) for k in ops),
         "ws_pad_zero": not bool(ws[:, n:].any()),
-        "finite": all(bool(torch.isfinite(t).all()) for t in flat_out(split)),
+        "finite": all(bool(torch.isfinite(t).all()) for t in (*flat_out(split), *flat_out(mma))),
+        "mma_ws_err": max(rel_err(ops_m[k], ops_p[k]) for k in ops_p),
+        "mma_ws_pad_zero": not bool(rl_mma[3][:, n:].any()),
+        "mma_vs_split": max(rel_err(a, b) for a, b in zip(rl_out(rl_mma), rowlocal(split))),
+        "mma_err": {"dx": rel_err(mma[1], ref[1]), "dd": rel_err(mma[2], ref[2]),
+                    "dparams": max(rel_err(a, b) for a, b in zip(mma[0], ref[0]))},
+        "mma_max_abs_err": max(float((a - b).abs().max()) for a, b in zip(flat_out(mma), flat_out(ref))),
+        "mma_rowlocal_max_abs_err": max(float((a - b).abs().max()) for a, b in zip(rl_out(rl_mma), rowlocal(ref))),
     }
-    del ops, ops_p, ws_p
+    del ops, ops_p, ops_m, ws_p, rl_mma, mma
     if reps:
         with torch.no_grad():
             timed = {
                 "ms": lambda: K.field_bwd_stash_kernel(*args, cd),
+                "split_ms": lambda: K.field_bwd_stash_kernel_variant(*args, cd, "split"),
                 "scalar_ms": lambda: K.field_bwd_stash_kernel_variant(*args, cd, "scalar"),
                 "plain_ms": lambda: K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd),
             }
@@ -642,6 +670,7 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
         with torch.no_grad():
             stages = {
                 "producer_ms": lambda: K.field_bwd_rowlocal_kernel(*args),
+                "producer_split_ms": lambda: K.field_bwd_rowlocal_kernel(*args, variant="split"),
                 "producer_plain_ms": lambda: K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd),
                 "gemm_ms": lambda: DW.field_dw_kernel(ws, n, g),
                 "gemm_plain_ms": lambda: DW.field_dw_plain(ws),
@@ -671,6 +700,16 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
     require(rec["gemm_err"] <= DW_VS_PLAIN, f"{what}: GEMM err {rec['gemm_err']:.3g} > {DW_VS_PLAIN}")
     require(rec["gemm_repeat_equal"], f"{what}: two GEMM calls on one workspace differ")
     require(rec["ws_pad_zero"], f"{what}: the workspace's padded points are not zero")
+    # the tensor-core row-local pass ("mma"): its workspace against the plain
+    # row-local pass's, its dx, dd and bias gradients against the scalar
+    # pass's, and K2-bwd with it against the plain version
+    require(rec["mma_ws_err"] <= TOL["bfloat16"],
+            f"{what}: the mma row-local pass's workspace differs from the plain one's by {rec['mma_ws_err']:.3g}")
+    require(rec["mma_ws_pad_zero"], f"{what}: the mma workspace's padded points are not zero")
+    require(rec["mma_vs_split"] <= TOL["bfloat16"],
+            f"{what}: the mma row-local pass's dx, dd or biases differ from the split one's by {rec['mma_vs_split']:.3g}")
+    for k, v in rec["mma_err"].items():
+        require(v <= TOL["bfloat16"], f"{what}: mma {k} err {v:.3g} > {TOL['bfloat16']}")
     return rec
 
 
@@ -679,11 +718,15 @@ def print_k2b(r):
             f"{r['vs_scalar']:.3g}, all outputs rel L2 {r['l2_vs_scalar']:.3g}; err {json.dumps({k: float(f'{v:.3g}') for k, v in r['err'].items()})}"
             f" (scalar {json.dumps({k: float(f'{v:.3g}') for k, v in r['scalar_err'].items()})}); GEMM against "
             f"field_dw_plain {r['gemm_err']:.3g}, repeat equal {r['gemm_repeat_equal']}; workspace against the plain "
-            f"row-local pass's {r['ws_err']:.3g}")
+            f"row-local pass's {r['ws_err']:.3g}; mma row-local pass: workspace {r['mma_ws_err']:.3g}, dx dd db "
+            f"against split {r['mma_vs_split']:.3g}, K2-bwd with it err "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in r['mma_err'].items()})}")
     if "ms" in r:
-        line += (f"; {r['ms']:.3f} ms (scalar {r['scalar_ms']:.3f}, plain {r['plain_ms']:.3f}"
+        line += (f"; {r['ms']:.3f} ms (split {r['split_ms']:.3f}, scalar "
+                 f"{r['scalar_ms']:.3f}, plain {r['plain_ms']:.3f}"
                  + (f", library {r['library_ms']:.3f}" if "library_ms" in r else "")
-                 + f"; bound {r['bound_ms']:.3f} by {r['bound_by']}); producer {r['producer_ms']:.3f} ms "
+                 + f"; bound {r['bound_ms']:.3f} by {r['bound_by']}); mma row-local pass {r['producer_ms']:.3f} ms "
+                 f"(split {r['producer_split_ms']:.3f}) "
                  f"(plain {r['producer_plain_ms']:.3f}; bound {r['producer_bound_ms']:.3f} by {r['producer_bound_by']}), "
                  f"GEMM {r['gemm_ms']:.3f} ms (plain {r['gemm_plain_ms']:.3f}, cuBLAS bf16 products "
                  f"{r['gemm_cublas_ms']:.3f}; bound {r['gemm_bound_ms']:.3f} by {r['gemm_bound_by']}); by kernel "
@@ -692,9 +735,14 @@ def print_k2b(r):
 
 
 def k2b_phase(model, cfg, gen, quick, n_main):
-    """Every check of the split K2-bwd; (not quick) the main path's size, timed."""
+    """Every check of the split K2-bwd; (not quick) a workspace past 2^31
+    elements (its last rows beyond a 32-bit offset), and the main path's
+    size, timed."""
+    from neat_tpu_torch.ops.field_dw import WS_ROWS
+
     recs = [check_k2b(model, cfg, n, gen, reps=0) for n in K2B_SIZES]
     if not quick:
+        recs.append(check_k2b(model, cfg, 2**31 // WS_ROWS + 1000, gen, reps=0))
         recs.append(check_k2b(model, cfg, n_main, gen, reps=6, library=True))
     return recs
 
@@ -716,10 +764,46 @@ def _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd):
         return torch.autograd.grad(outs, leaves, cots)
 
 
+# bf16 K3-bwd (the split backward over chunks) against the model's K2 on the
+# same inputs, K2-fwd on the tensor cores then the split K2-bwd on its stash:
+# dx and dd exactly (the same kernels on the same rows), the gradients
+# within the limit the GEMM meets against field_dw_plain (the same bf16
+# products, their f32 sums in chunks); its recomputed forward equal to
+# K2-fwd's exactly (the same entry)
+K3_SPLIT_VS_K2 = 0.0
+K3_SPLIT_DW_VS_K2 = 1e-4
+
+
+def recorded_k3_bwd(flat, x, d, cots, icfg, cd):
+    """K3-bwd and the forward outputs its chunks recomputed (sdf, grads,
+    rgb, att), concatenated in chunk order (None in f32: no chunks)."""
+    import torch
+
+    from neat_tpu_torch.ops import fused_field as F
+
+    seen, inner = [], F.field_bwd_chunk_fwd
+
+    def record(*args):
+        out = inner(*args)
+        seen.append([t.clone() for t in out[:4]])
+        return out
+
+    record.launches = 0  # the wrapper counts on its module-level name
+    F.field_bwd_chunk_fwd = record
+    try:
+        out = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
+    finally:
+        F.field_bwd_chunk_fwd = inner
+    return out, [torch.cat(ts) for ts in zip(*seen)] if seen else None
+
+
 def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
     """K3-fwd against field_math, K3-bwd against its autograd and against
-    K2-fwd + K2-bwd. ``library`` = (forward ms, backward ms) of the unfused
-    PyTorch route at this size, as check_k2 timed it."""
+    K2-fwd + K2-bwd: in bf16 the split K3-bwd against the model's K2 (and
+    its recomputed forward against K2-fwd and K3-fwd), the "scalar" variant
+    against the scalar K2 pair; in f32 against the f32 K2 pair. ``library``
+    = (forward ms, backward ms) of the unfused PyTorch route at this size,
+    as check_k2 timed it."""
     import torch
 
     from neat_tpu_torch.ops import fused_field as F
@@ -729,51 +813,63 @@ def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
     icfg, rcfg = cfg.implicit, cfg.rendering
     x, d, cots = _field_inputs(n, gen)
     names = ("sdf", "grads", "rgb", "att")
+    bf16 = dtype == "bfloat16"
+    flat_out = lambda r: (*r[0], r[1], r[2])
     with torch.no_grad():
         flat = tuple(t.detach().contiguous() for t in F._flatten_eff(model))
         got = F.field_fwd_kernel(flat, x, d, icfg, cd)
         ref = F.field_math(flat, x, d, icfg, rcfg, cd)
         k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
-        bgot = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
-        # K3-bwd re-runs the scalar forward tile and the fused scalar backward
-        # tile: the fused scalar K2-bwd replays the stash of the scalar K2-fwd
-        # (in bf16 the tensor cores sum in another order, and a relu moved
-        # across 0 changes a point's backward; the split K2-bwd sums dW in
-        # another order)
-        if dtype == "bfloat16":
+        bgot, refwd = recorded_k3_bwd(flat, x, d, cots, icfg, cd)
+        # the model's K2: K2-fwd, then K2-bwd on its stash (bf16: the split one)
+        bk2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
+        if bf16:
+            # the scalar variants: K3's fused kernel re-runs the scalar forward
+            # tile, so the fused scalar K2-bwd replays the scalar K2-fwd's stash
             k2s = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar")
-            k2_bwd = lambda s_: K.field_bwd_stash_kernel_variant(
-                flat, x, d, s_[4], s_[5], s_[2], s_[1], cots, icfg, cd, "scalar")
-        else:
-            k2s = k2
-            k2_bwd = lambda s_: K.field_bwd_stash_kernel(flat, x, d, s_[4], s_[5], s_[2], s_[1], cots, icfg, cd)
-        bk2 = k2_bwd(k2s)
-        bk2m = k2_bwd(k2)
+            bk2s = K.field_bwd_stash_kernel_variant(
+                flat, x, d, k2s[4], k2s[5], k2s[2], k2s[1], cots, icfg, cd, "scalar")
+            bsc = F.field_bwd_kernel_variant(flat, x, d, cots, icfg, cd, "scalar")
         torch.cuda.synchronize()
     fwd_err = {k: rel_err(a, b) for k, a, b in zip(names, got, ref)}
     fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
     fwd_vs_k2 = max(rel_err(a, b) for a, b in zip(got, k2[:4]))
-    kernel = (*bgot[0], bgot[1], bgot[2])
-    bwd_vs_k2 = max(rel_err(a, b) for a, b in zip(kernel, (*bk2[0], bk2[1], bk2[2])))
-    # reported only: K2-bwd on the tensor-core forward's stash against on the scalar one's
-    bwd_new_stash_l2 = max(l2_err(a, b) for a, b in zip((*bk2m[0], bk2m[1], bk2m[2]), (*bk2[0], bk2[1], bk2[2])))
+    kernel = flat_out(bgot)
+    rec = {"n": n, "dtype": dtype, "fwd_err": fwd_err, "fwd_max_abs_err": fwd_abs, "fwd_vs_k2": fwd_vs_k2}
+    if bf16:
+        rec["bwd_vs_k2_dxdd"] = max(float((a - b).abs().max()) for a, b in zip(kernel[-2:], flat_out(bk2)[-2:]))
+        rec["bwd_vs_k2_dparams"] = max(rel_err(a, b) for a, b in zip(bgot[0], bk2[0]))
+        rec["scalar_vs_k2"] = max(rel_err(a, b) for a, b in zip(flat_out(bsc), flat_out(bk2s)))
+        rec["scalar_l2"] = max(l2_err(a, b) for a, b in zip(kernel, flat_out(bsc)))
+        rec["refwd_vs_k2"] = max(float((a - b).abs().max()) for a, b in zip(refwd, k2[:4]))
+        rec["refwd_vs_k3"] = max(rel_err(a, b) for a, b in zip(refwd, got))
+        del k2s, bk2s, bsc
+    else:
+        rec["bwd_vs_k2"] = max(rel_err(a, b) for a, b in zip(kernel, flat_out(bk2)))
+    del k2, bk2
     plain = _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd)
     torch.cuda.synchronize()
-    bwd_l2 = {"dx": l2_err(kernel[-2], plain[-2]), "dd": l2_err(kernel[-1], plain[-1]),
-              "dparams": max(l2_err(a, b) for a, b in zip(kernel[:-2], plain[:-2]))}
-    bwd_max = {"dx": rel_err(kernel[-2], plain[-2]), "dd": rel_err(kernel[-1], plain[-1]),
-               "dparams": max(rel_err(a, b) for a, b in zip(kernel[:-2], plain[:-2]))}
-    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(kernel, plain))
+    rec["bwd_l2"] = {"dx": l2_err(kernel[-2], plain[-2]), "dd": l2_err(kernel[-1], plain[-1]),
+                     "dparams": max(l2_err(a, b) for a, b in zip(kernel[:-2], plain[:-2]))}
+    rec["bwd_max"] = {"dx": rel_err(kernel[-2], plain[-2]), "dd": rel_err(kernel[-1], plain[-1]),
+                      "dparams": max(rel_err(a, b) for a, b in zip(kernel[:-2], plain[:-2]))}
+    rec["bwd_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(kernel, plain))
+    if bf16:
+        # the bf16 route's own plain version: the same chunks, field_fwd_res's
+        # forward (sums in another order than the tensor cores': held like
+        # autograd, in relative L2)
+        with torch.no_grad():
+            ref_split = K.field_bwd_recompute_split_plain(flat, x, d, cots, icfg, rcfg, cd)
+        rec["bwd_split_plain_l2"] = max(l2_err(a, b) for a, b in zip(kernel, flat_out(ref_split)))
+        rec["bwd_split_plain_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(kernel, flat_out(ref_split)))
+        del ref_split
     # the points whose own dx or dd is off by more than 10x the forward's limit
     off = sum(
         (a - b).abs().amax(dim=-1) > 10 * K3_FWD_TOL[dtype] * b.abs().max()
         for a, b in zip(kernel[-2:], plain[-2:])
     )
-    finite = all(bool(torch.isfinite(t).all()) for t in (*got, *kernel))
-    rec = {"n": n, "dtype": dtype, "fwd_err": fwd_err, "fwd_max_abs_err": fwd_abs,
-           "fwd_vs_k2": fwd_vs_k2, "bwd_vs_k2": bwd_vs_k2, "bwd_new_stash_l2": bwd_new_stash_l2,
-           "bwd_l2": bwd_l2, "bwd_max": bwd_max,
-           "bwd_max_abs_err": bwd_abs, "bwd_points_off": int((off > 0).sum()), "finite": finite}
+    rec["bwd_points_off"] = int((off > 0).sum())
+    rec["finite"] = all(bool(torch.isfinite(t).all()) for t in (*got, *kernel))
     if self_noise:
         # the plain version against itself with every product summed in two halves
         def split_k(h, w, cd_, el):
@@ -791,27 +887,173 @@ def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
         rec["plain_self_max"] = max(rel_err(a, b) for a, b in zip(halves, plain))
     del plain
     if reps:
-        # (the forward is timed in turns by check_fwd)
+        # (the forward is timed in turns by check_fwd) in turns: the model's
+        # K3-bwd, the scalar kernel (bf16), its plain versions: the chunked
+        # split one (bf16) and autograd of field_math
         with torch.no_grad():
-            rec["bwd_ms"] = time_ms(lambda: F.field_bwd_kernel(flat, x, d, cots, icfg, cd), reps)
-        rec["bwd_plain_ms"] = time_ms(lambda: _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd), reps)
+            timed = {"bwd_ms": lambda: F.field_bwd_kernel(flat, x, d, cots, icfg, cd)}
+            if bf16:
+                timed["bwd_scalar_ms"] = lambda: F.field_bwd_kernel_variant(flat, x, d, cots, icfg, cd, "scalar")
+                timed["bwd_split_plain_ms"] = lambda: K.field_bwd_recompute_split_plain(
+                    flat, x, d, cots, icfg, rcfg, cd)
+        timed["bwd_autograd_ms"] = lambda: _plain_k3_bwd(flat, x, d, cots, icfg, rcfg, cd)
+        for _ in range(2):
+            for key, fn in timed.items():
+                with torch.no_grad() if key != "bwd_autograd_ms" else torch.enable_grad():
+                    rec[key] = rec.get(key, 0.0) + time_ms(fn, max(1, reps // 2)) / 2
+        rec["bwd_plain_ms"] = rec["bwd_split_plain_ms" if bf16 else "bwd_autograd_ms"]
         if library is not None:
             # K3-bwd is handed no residuals, so its route runs the forward too
             rec["bwd_library_ms"] = library[0] + library[1]
         fwd_macs, bwd_macs = k2_macs_per_point()
-        cdb = 2 if dtype == "bfloat16" else 4
+        cdb = 2 if bf16 else 4
         wb = weight_bytes(F.CANONICAL_SHAPES, cdb)
         bwd_bytes = n * (24 + 52 + 24) + 2 * wb + 4 * F._n_param_grads()
         rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound_ms((fwd_macs + bwd_macs) * n, bwd_bytes, dtype)
     what = f"K3 {dtype} n={n}"
-    require(finite, f"{what}: non-finite output")
+    require(rec["finite"], f"{what}: non-finite output")
     for k, v in fwd_err.items():
         require(v <= K3_FWD_TOL[dtype], f"{what}: forward {k} err {v:.3g} > {K3_FWD_TOL[dtype]}")
     require(fwd_vs_k2 <= K3_VS_K2, f"{what}: forward differs from K2-fwd by {fwd_vs_k2:.3g}")
-    require(bwd_vs_k2 <= K3_VS_K2, f"{what}: backward differs from K2-fwd + K2-bwd by {bwd_vs_k2:.3g}")
-    for k, v in bwd_l2.items():
+    if bf16:
+        require(rec["bwd_vs_k2_dxdd"] <= K3_SPLIT_VS_K2,
+                f"{what}: dx or dd differs from K2-fwd + split K2-bwd by {rec['bwd_vs_k2_dxdd']:.3g}")
+        require(rec["bwd_vs_k2_dparams"] <= K3_SPLIT_DW_VS_K2,
+                f"{what}: a gradient differs from K2-fwd + split K2-bwd by {rec['bwd_vs_k2_dparams']:.3g}")
+        require(rec["refwd_vs_k2"] == 0.0,
+                f"{what}: the recomputed forward differs from K2-fwd by {rec['refwd_vs_k2']:.3g}")
+        require(rec["refwd_vs_k3"] <= K3_VS_K2,
+                f"{what}: the recomputed forward differs from K3-fwd by {rec['refwd_vs_k3']:.3g}")
+        require(rec["scalar_vs_k2"] <= K3_VS_K2,
+                f"{what}: the scalar K3-bwd differs from the scalar K2 pair by {rec['scalar_vs_k2']:.3g}")
+        require(rec["bwd_split_plain_l2"] <= K3_BWD_L2[dtype],
+                f"{what}: backward L2 err against its chunked plain version {rec['bwd_split_plain_l2']:.3g}")
+    else:
+        require(rec["bwd_vs_k2"] <= K3_VS_K2, f"{what}: backward differs from K2-fwd + K2-bwd by {rec['bwd_vs_k2']:.3g}")
+    for k, v in rec["bwd_l2"].items():
         require(v <= K3_BWD_L2[dtype], f"{what}: backward {k} L2 err {v:.3g} > {K3_BWD_L2[dtype]}")
     return rec
+
+
+def print_k3(r):
+    if r["dtype"] == "bfloat16":
+        line = (f"against the model's K2 (K2-fwd, K2-bwd): dx, dd max |diff| {r['bwd_vs_k2_dxdd']:.3g}, "
+                f"gradients {r['bwd_vs_k2_dparams']:.3g}; recomputed forward against K2-fwd max |diff| "
+                f"{r['refwd_vs_k2']:.3g}, against K3-fwd {r['refwd_vs_k3']:.3g}; scalar K3-bwd against the scalar K2 "
+                f"pair {r['scalar_vs_k2']:.3g} (the model's against the scalar, rel L2 {r['scalar_l2']:.3g}); "
+                f"against its chunked plain version, rel L2 {r['bwd_split_plain_l2']:.3g}")
+    else:
+        line = f"against K2: bwd {r['bwd_vs_k2']:.3g}"
+    print(f"K3 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])}; against K2: fwd {r['fwd_vs_k2']:.3g}; "
+          + line + f"; bwd against autograd: L2 {json.dumps(r['bwd_l2'])}, max {json.dumps(r['bwd_max'])}, "
+          f"{r['bwd_points_off']} points off in dx or dd"
+          + (f"; autograd against itself, products in two halves: L2 {r['plain_self_l2']:.3g}, "
+             f"max {r['plain_self_max']:.3g}" if "plain_self_l2" in r else "")
+          + (f"; bwd {r['bwd_ms']:.3f} ms (" + (f"scalar {r['bwd_scalar_ms']:.3f}, chunked plain {r['bwd_split_plain_ms']:.3f}, "
+             if "bwd_scalar_ms" in r else "")
+             + f"autograd {r['bwd_autograd_ms']:.3f}"
+             + (f", library {r['bwd_library_ms']:.3f}" if "bwd_library_ms" in r else "")
+             + f"; bound {r['bwd_bound_ms']:.3f} by {r['bwd_bound_by']})" if "bwd_ms" in r else ""),
+          flush=True)
+
+
+def check_k3_chunk(model, cfg, gen, reps):
+    """The three kernels bf16 K3-bwd runs on each chunk, through their own
+    wrappers at one chunk's shape (RECOMPUTE_CHUNK points), given the
+    weights packed once as K3-bwd gives them: the forward with
+    its stash against field_fwd_res, the row-local pass on that stash
+    against field_bwd_rowlocal_plain on the same stash, the GEMM on that
+    workspace against field_dw_plain; each timed beside its plain version,
+    with its bound."""
+    import torch
+
+    from neat_tpu_torch.ops import field_dw as DW
+    from neat_tpu_torch.ops import fused_field as F
+    from neat_tpu_torch.ops import fused_field_stash as K
+
+    cd, n = torch.bfloat16, F.RECOMPUTE_CHUNK
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    x, d, cots = _field_inputs(n, gen)
+    with torch.no_grad():
+        flat = tuple(t.detach().contiguous() for t in F._flatten_eff(model))
+        packed, w_bwd = K.pack_field_weights_gather(flat, cd), K.pack_field_bwd_weights_gather(flat, cd)
+        fwd = F.field_bwd_chunk_fwd(flat, x, d, icfg, packed)
+        out_p, res_p = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
+        fwd_p = (*out_p, *K._pack_res(res_p))
+        del res_p
+        sdf, grads, rgb, att, scd, sf32 = fwd
+        args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
+        dp, dx, dd, ws = F.field_bwd_chunk_rowlocal(*args, w_bwd)
+        res = K._unpack_res(scd, sf32, rgb, grads, icfg, rcfg)
+        ws_p, dbs_p, col8_p, dx_p, dd_p = K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd)
+        g = torch.zeros_like(dp)
+        F.field_bwd_chunk_dw(ws, n, g)
+        dw_p = DW.field_dw_plain(ws)
+        torch.cuda.synchronize()
+    dbs = K._split_param_grads(dp, flat)[1::2]
+    ops, ops_p = DW.unpack_workspace(ws, n), DW.unpack_workspace(ws_p, n)
+    gw = K._split_param_grads(g, flat)[0::2]
+    rec = {
+        "n": n,
+        "fwd_err": max(rel_err(a, b) for a, b in zip(fwd, fwd_p)),
+        "fwd_max_abs_err": max(float((a.float() - b.float()).abs().max()) for a, b in zip(fwd, fwd_p)),
+        "rowlocal_err": max([rel_err(ops[k], ops_p[k]) for k in ops]
+                            + [rel_err(a, b) for a, b in zip((dx, dd, *dbs), (dx_p, dd_p, *dbs_p))]),
+        "rowlocal_max_abs_err": max(float((a - b).abs().max()) for a, b in zip((dx, dd, *dbs), (dx_p, dd_p, *dbs_p))),
+        "dw_err": max(rel_err(a, b) for a, b in zip(gw, dw_p)),
+        "dw_max_abs_err": max(float((a - b).abs().max()) for a, b in zip(gw, dw_p)),
+    }
+    del ops, ops_p, ws_p, fwd_p
+    if reps:
+        with torch.no_grad():
+            timed = {
+                "fwd_ms": lambda: F.field_bwd_chunk_fwd(flat, x, d, icfg, packed),
+                "fwd_plain_ms": lambda: K._pack_res(K.field_fwd_res(flat, x, d, icfg, rcfg, cd)[1]),
+                "rowlocal_ms": lambda: F.field_bwd_chunk_rowlocal(*args, w_bwd),
+                "rowlocal_plain_ms": lambda: K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd),
+                "dw_ms": lambda: F.field_bwd_chunk_dw(ws, n, g),
+                "dw_plain_ms": lambda: DW.field_dw_plain(ws),
+            }
+            for key, fn in timed.items():
+                rec[key] = time_ms(fn, reps)
+        fwd_macs, bwd_macs = k2_macs_per_point()
+        dw_macs, dw_bytes = dw_work(n)
+        rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound_ms(fwd_macs * n, fwd_bytes(n, "k2", 2), "bfloat16")
+        rec["rowlocal_bound_ms"], rec["rowlocal_bound_by"] = bound_ms(
+            bwd_macs * n - dw_macs, k2b_bytes(n) + DW.WS_ROWS * 2 * n, "bfloat16")
+        rec["dw_bound_ms"], rec["dw_bound_by"] = bound_ms(dw_macs, dw_bytes, "bfloat16")
+    what = f"K3-bwd chunk kernels n={n}"
+    tol = TOL["bfloat16"]
+    require(rec["fwd_err"] <= tol, f"{what}: forward err {rec['fwd_err']:.3g} > {tol}")
+    require(rec["rowlocal_err"] <= tol, f"{what}: row-local pass err {rec['rowlocal_err']:.3g} > {tol}")
+    require(rec["dw_err"] <= DW_VS_PLAIN, f"{what}: GEMM err {rec['dw_err']:.3g} > {DW_VS_PLAIN}")
+    return rec
+
+
+def print_k3_chunk(r):
+    line = (f"K3-bwd chunk kernels n={r['n']}: forward err {r['fwd_err']:.3g}, row-local pass err "
+            f"{r['rowlocal_err']:.3g}, GEMM err {r['dw_err']:.3g}")
+    if "fwd_ms" in r:
+        line += "".join(f"; {k} {r[k + '_ms']:.3f} ms (plain {r[k + '_plain_ms']:.3f}; bound "
+                        f"{r[k + '_bound_ms']:.3f} by {r[k + '_bound_by']})" for k in ("fwd", "rowlocal", "dw"))
+    print(line, flush=True)
+
+
+# sizes of the bf16 K3 checks of --only k3b: one chunk (ragged against the
+# forward's 128-point tile and the workspace's 64-point chunk), two chunks
+# whose second holds one point, two ragged chunks (the main path's size is
+# added)
+K3B_SIZES = (1, 127, 129, 1000, 16_385, 40_000)
+
+
+def k3b_phase(model, cfg, gen, quick, n_main):
+    """Every check of the bf16 K3-bwd: the sizes above; (not quick) the main
+    path's size timed, and the chunk kernels at a chunk's shape, timed."""
+    recs = [check_k3(model, cfg, n, "bfloat16", gen, reps=0) for n in K3B_SIZES]
+    chunk = check_k3_chunk(model, cfg, gen, reps=0 if quick else 10)
+    if not quick:
+        recs.append(check_k3(model, cfg, n_main, "bfloat16", gen, reps=4))
+    return recs, chunk
 
 
 def sampler_rounds(model, cfg, n_rays, gen):
@@ -896,7 +1138,9 @@ def check_k4(data, scfg, refine, reps):
 
 
 def counters():
-    from neat_tpu_torch.ops.fused_field import field_bwd_kernel, field_fwd_kernel
+    from neat_tpu_torch.ops.fused_field import (
+        field_bwd_chunk_dw, field_bwd_chunk_fwd, field_bwd_chunk_rowlocal, field_bwd_kernel, field_fwd_kernel,
+    )
     from neat_tpu_torch.ops.field_dw import field_dw_kernel
     from neat_tpu_torch.ops.fused_field_stash import (
         field_bwd_rowlocal_kernel, field_bwd_stash_kernel, field_fwd_stash_kernel,
@@ -912,6 +1156,9 @@ def counters():
         "field_dw": field_dw_kernel,
         "field_fwd": field_fwd_kernel,
         "field_bwd": field_bwd_kernel,
+        "field_bwd_chunk_fwd": field_bwd_chunk_fwd,
+        "field_bwd_chunk_rowlocal": field_bwd_chunk_rowlocal,
+        "field_bwd_chunk_dw": field_bwd_chunk_dw,
         "fused_round": fused_round_kernel,
     }
 
@@ -919,10 +1166,16 @@ def counters():
 # launches per step of each path through bench_config -> bench_step; a kernel
 # not named launches 0 times. The bf16 K2-bwd (field_bwd_stash) is the split
 # backward: its row-local pass and its weight-gradient GEMM count their own.
+# The bf16 K3-bwd (field_bwd) runs the split backward on each of the main
+# field pass's K3_CHUNKS chunks: the forward with its stash, the row-local
+# pass and the GEMM, each counted under its own name.
 K2_BWD = dict(field_bwd_stash=1, field_bwd_rowlocal=1, field_dw=1)
+K3_CHUNKS = 7  # 100,352 points in chunks of RECOMPUTE_CHUNK = 16,384
+K3_BWD = dict(field_bwd=1, field_bwd_chunk_fwd=K3_CHUNKS, field_bwd_chunk_rowlocal=K3_CHUNKS,
+              field_bwd_chunk_dw=K3_CHUNKS)
 PATHS = {
     "main": (dict(), dict(fused_sdf=5, field_fwd_stash=1, **K2_BWD)),
-    "recompute": (dict(field="recompute"), dict(fused_sdf=5, field_fwd=1, field_bwd=1)),
+    "recompute": (dict(field="recompute"), dict(fused_sdf=5, field_fwd=1, **K3_BWD)),
     "fused_rounds": (dict(fused_rounds="on"),
                      dict(fused_round=5, fused_sdf=5, field_fwd_stash=1, **K2_BWD)),
 }
@@ -950,14 +1203,16 @@ def train_steps(path, n_steps):
     gen = torch.Generator(device="cuda").manual_seed(0)
     for f in fns.values():
         f.launches = 0
-    times, losses, per_step = [], [], []
+    times, losses, per_step, peaks = [], [], [], []
     for _ in range(n_steps):
         before = {k: f.launches for k, f in fns.items()}
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, metrics = step(state, scene, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated())
         loss = float(metrics["loss"])
         losses.append(loss)
         grew = {k: f.launches - before[k] for k, f in fns.items()}
@@ -969,6 +1224,7 @@ def train_steps(path, n_steps):
     return {
         "step_ms": times, "median_ms": ms, "rays_per_sec": BENCH_N_RAYS / (ms / 1e3),
         "losses": losses, "launches": launches, "launches_per_step": per_step,
+        "peak_bytes": max(peaks),
     }
 
 
@@ -1188,7 +1444,8 @@ def eval_forward(n_rays):
 # --only <kernel>: the libraries that kernel's checks build (the kernel's
 # own and the scalar kernel it is held against)
 ONLY = {"k1": ("fused_sdf",), "k2": ("field_fwd_mma", "fused_field_stash"),
-        "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash")}
+        "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash", "field_bwd_mma"),
+        "k3b": ("field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field")}
 
 
 def main() -> int:
@@ -1234,6 +1491,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     os.makedirs(OUT_DIR, exist_ok=True)
     n_main = 1024 * (cfg.sampler.n_samples + cfg.sampler.n_samples_extra + 2)  # the main field pass
+    from neat_tpu_torch.ops.fused_field import recompute_chunks
+
+    require(len(recompute_chunks(n_main)) == K3_CHUNKS, "K3_CHUNKS is not the main field pass's chunk count")
     if args.only:
         if args.only == "k1":
             report["k1"] = k1_phase(model, cfg, gen, args.quick)
@@ -1243,6 +1503,11 @@ def main() -> int:
             report["k2b"] = k2b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k2b"]:
                 print_k2b(r)
+        elif args.only == "k3b":
+            report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
+            for r in report["k3b"]:
+                print_k3(r)
+            print_k3_chunk(report["k3b_chunk"])
         else:
             report[args.only] = fwd_phase(args.only, model, cfg, gen, args.quick, n_main)
             for r in report[args.only]:
@@ -1270,8 +1535,9 @@ def main() -> int:
             k2.append(check_k2(model, cfg, 4096, dt, gen, reps=0))
             k3.append(check_k3(model, cfg, 4096, dt, gen, reps=0, self_noise=True))
         k2.append(check_k2(model, cfg, n_main, "bfloat16", gen, reps=3, library=True))
-        k3.append(check_k3(model, cfg, n_main, "bfloat16", gen, reps=3,
+        k3.append(check_k3(model, cfg, n_main, "bfloat16", gen, reps=4,
                            library=(k2[-1]["fwd_library_ms"], k2[-1]["bwd_library_ms"])))
+        k3_chunk = check_k3_chunk(model, cfg, gen, reps=10)
         for data in (rounds[0], rounds[-1]):
             k4.extend(check_k4(data, cfg.sampler, refine, reps=0) for refine in (True, False))
         k4.append(check_k4(rounds[-1], cfg.sampler, False, reps=20))  # the last round, as the sampler runs it
@@ -1287,21 +1553,17 @@ def main() -> int:
               + (f", bwd {r['bwd_ms']:.3f} ms" if "bwd_ms" in r else ""),
               flush=True)
     for r in k3:
-        print(f"K3 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])}; against K2: fwd "
-              f"{r['fwd_vs_k2']:.3g}, bwd {r['bwd_vs_k2']:.3g} (K2-bwd on the scalar K2-fwd's stash; on the "
-              f"tensor-core one's, L2 {r['bwd_new_stash_l2']:.3g}); bwd against autograd: L2 "
-              f"{json.dumps(r['bwd_l2'])}, max {json.dumps(r['bwd_max'])}, "
-              f"{r['bwd_points_off']} points off in dx or dd"
-              + (f"; autograd against itself, products in two halves: L2 {r['plain_self_l2']:.3g}, "
-                 f"max {r['plain_self_max']:.3g}" if "plain_self_l2" in r else "")
-              + (f"; bwd {r['bwd_ms']:.3f} ms (plain {r['bwd_plain_ms']:.3f})" if "bwd_ms" in r else ""),
-              flush=True)
+        print_k3(r)
+    if not args.quick:
+        print_k3_chunk(k3_chunk)
     for r in k4:
         print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on "
               f"{r['flipped_rays']} rays, max |err| elsewhere {r['max_abs_err']:.3g}, "
               f"{r['nan_rows']} rows with a NaN pdf"
               + (f", {r['ms']:.4f} ms (plain {r['plain_ms']:.3f})" if "ms" in r else ""), flush=True)
     report.update(k1=k1, k2_fwd=fwd2, k3_fwd=fwd3, k2b=k2b, k2=k2, k3=k3, k4=k4)
+    if not args.quick:
+        report["k3_chunk"] = k3_chunk
     out_path = os.path.join(OUT_DIR, "chip_smoke.json")
 
     if not args.quick:
@@ -1312,6 +1574,10 @@ def main() -> int:
                   f"launches {runs[path]['launches']}", flush=True)
         train = report["train"] = runs["main"]
         report["train_paths"] = runs
+        print("peak device memory over one step: " + ", ".join(
+            f"{path} {r['peak_bytes'] / 1e9:.3f} GB" for path, r in runs.items()), flush=True)
+        require(runs["recompute"]["peak_bytes"] < runs["main"]["peak_bytes"],
+                "the recompute step's peak device memory is not below the main step's")
         print(f"ms/step: {train['median_ms']:.2f}", flush=True)
         print(f"rays/s: {train['rays_per_sec']:.1f}", flush=True)
         report["eval_forward"] = eval_forward(1024)
@@ -1369,15 +1635,17 @@ def main() -> int:
         # the bf16 K2-bwd, the split one, timed in turns at the main path's
         # size; and its two kernels, each with its own plain version and bound
         tb = k2b[-1]
+        rowlocal_src = "field_bwd_mma.cu"
         kernels.append(dict(
-            name="field_bwd_stash", route="cuda", source=src + "fused_field_stash.cu",
+            name="field_bwd_stash", route="cuda", source=src + rowlocal_src,
             replaces="neat_tpu/ops/fused_field_stash.py:465", launches=runs["main"]["launches"]["field_bwd_stash"],
-            max_abs_err=tb["max_abs_err"], ms=tb["ms"], plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
+            max_abs_err=tb["mma_max_abs_err"], ms=tb["ms"], plain_ms=tb["plain_ms"], bound_ms=tb["bound_ms"],
             bound_by=tb["bound_by"], library_ms=tb["library_ms"]))
         kernels.append(dict(
-            name="field_bwd_rowlocal", route="cuda", source=src + "field_tile.cuh",
+            name="field_bwd_rowlocal", route="cuda", source=src + rowlocal_src,
             replaces="neat_tpu/ops/fused_field_stash.py:465",
-            launches=runs["main"]["launches"]["field_bwd_rowlocal"], max_abs_err=tb["rowlocal_max_abs_err"],
+            launches=runs["main"]["launches"]["field_bwd_rowlocal"],
+            max_abs_err=tb["mma_rowlocal_max_abs_err"],
             ms=tb["producer_ms"], plain_ms=tb["producer_plain_ms"], bound_ms=tb["producer_bound_ms"],
             bound_by=tb["producer_bound_by"], library_ms=None))
         kernels.append(dict(
@@ -1385,15 +1653,22 @@ def main() -> int:
             replaces="neat_tpu/ops/fused_field_stash.py:465", launches=runs["main"]["launches"]["field_dw"],
             max_abs_err=tb["gemm_max_abs_err"], ms=tb["gemm_ms"], plain_ms=tb["gemm_plain_ms"],
             bound_ms=tb["gemm_bound_ms"], bound_by=tb["gemm_bound_by"], library_ms=None))
-        for name, file, line, rec, side, path in (
-            ("field_bwd", "fused_field", 223, t3, "bwd", "recompute"),
-        ):
+        # the bf16 K3-bwd (the split backward over chunks; its row-local
+        # pass's source, the bulk of its time), timed in turns at the main
+        # path's size against its chunked plain version; and the three
+        # kernels it runs on each chunk, at a chunk's shape
+        kernels.append(dict(
+            name="field_bwd", route="cuda", source=src + rowlocal_src,
+            replaces="neat_tpu/ops/fused_field.py:223", launches=runs["recompute"]["launches"]["field_bwd"],
+            max_abs_err=t3["bwd_split_plain_max_abs_err"], ms=t3["bwd_ms"], plain_ms=t3["bwd_plain_ms"],
+            bound_ms=t3["bwd_bound_ms"], bound_by=t3["bwd_bound_by"], library_ms=t3["bwd_library_ms"]))
+        for key, file in (("fwd", "field_fwd_mma.cu"), ("rowlocal", rowlocal_src), ("dw", "field_dw_mma.cu")):
+            name = f"field_bwd_chunk_{key}"
             kernels.append(dict(
-                name=name, route="cuda", source=f"{src}{file}.cu",
-                replaces=f"neat_tpu/ops/{file}.py:{line}", launches=runs[path]["launches"][name],
-                max_abs_err=rec[f"{side}_max_abs_err"], ms=rec[f"{side}_ms"],
-                plain_ms=rec[f"{side}_plain_ms"], bound_ms=rec[f"{side}_bound_ms"],
-                bound_by=rec[f"{side}_bound_by"], library_ms=rec[f"{side}_library_ms"]))
+                name=name, route="cuda", source=src + file, replaces="neat_tpu/ops/fused_field.py:223",
+                launches=runs["recompute"]["launches"][name], max_abs_err=k3_chunk[f"{key}_max_abs_err"],
+                ms=k3_chunk[f"{key}_ms"], plain_ms=k3_chunk[f"{key}_plain_ms"],
+                bound_ms=k3_chunk[f"{key}_bound_ms"], bound_by=k3_chunk[f"{key}_bound_by"], library_ms=None))
         kernels.append(dict(
             name="fused_round", route="cuda", source=src + "fused_round.cu",
             replaces="neat_tpu/ops/fused_round.py:105",

@@ -106,46 +106,17 @@ __device__ __forceinline__ float sigma_prime(float h) {
   return 1.f - e;
 }
 
-// The ring of N_SLOTS weight panels (K1's): panel s of the block's sequence
-// (the tile's N_FIELD_PANELS, again and again) sits in slot s % N_SLOTS once
-// the slot's `full` barrier has completed for the (s / N_SLOTS)-th time. Each
-// warp reports to `empty` when it has read the panel; the eighth report frees
-// the slot for panel s + N_SLOTS. A turn at the tensor cores reads at most
-// N_SLOTS panels, so the warpgroup that waits for its turn never holds a slot
-// that the other one needs.
-struct PanelRing {
-  const __nv_bfloat16* W;
-  __nv_bfloat16* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  int seq, total;
-
-  __device__ __forceinline__ void fill(int s) {  // one thread
-    const int slot = s % N_SLOTS, p = s % N_FIELD_PANELS;
-    const long at = p < N_SDF_PANELS ? (long)p * mma_tile::PANEL_ELEMS
-                                     : SDF_W_TOTAL + (long)(p - N_SDF_PANELS) * mma_tile::PANEL_ELEMS;
-    mma_tile::mbar_arrive_expect_tx(full + slot, mma_tile::PANEL_ELEMS * 2);
-    mma_tile::bulk_copy(slots + slot * mma_tile::PANEL_ELEMS, W + at, mma_tile::PANEL_ELEMS * 2,
-                        full + slot);
-  }
-  __device__ __forceinline__ const __nv_bfloat16* wait(int j) {
-    const int s = seq + j;
-    mma_tile::mbar_wait(full + (s % N_SLOTS), (s / N_SLOTS) & 1);
-    return slots + (s % N_SLOTS) * mma_tile::PANEL_ELEMS;
-  }
-  __device__ __forceinline__ void release(int j) {
-    if ((threadIdx.x & 31) == 0) mma_tile::mbar_arrive(empty + ((seq + j) % N_SLOTS));
-  }
-  // one thread of the warpgroup that reads each panel last: when the slot is
-  // free, ask for the panel that takes its place
-  __device__ __forceinline__ void refill(int j) {
-    const int s = seq + j;
-    if (s + N_SLOTS < total) {
-      mma_tile::mbar_wait(empty + (s % N_SLOTS), (s / N_SLOTS) & 1);
-      fill(s + N_SLOTS);
-    }
+// the ring of N_SLOTS weight panels (mma_tile::PanelRing, as K1's): the
+// tile's N_FIELD_PANELS panels, K1's first, then the heads' after K1's
+// buffer
+struct FieldPanels {
+  static constexpr int COUNT = N_FIELD_PANELS;
+  __device__ static long at(int p) {
+    return p < N_SDF_PANELS ? (long)p * mma_tile::PANEL_ELEMS
+                            : SDF_W_TOTAL + (long)(p - N_SDF_PANELS) * mma_tile::PANEL_ELEMS;
   }
 };
+using PanelRing = mma_tile::PanelRing<N_SLOTS, FieldPanels>;
 
 // acc = (accumulate ? acc : 0) + A[16 x 16*KS*NP] W^T from the next NP panels
 // of the ring, KS k16 steps of each; two panels to a wgmma group
@@ -415,18 +386,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 
   const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
   const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < N_SLOTS; ++i) {
-      mma_tile::mbar_init(full + i, 1);   // the thread that asks for the copy
-      mma_tile::mbar_init(empty + i, 8);  // one lane of each warp
-    }
-    mma_tile::mbar_init_fence();
-  }
-  __syncthreads();
   PanelRing ring{W, slots, full, empty, 0, mine * N_FIELD_PANELS};
+  if (threadIdx.x == 0) ring.init(8);  // one lane of each warp reads each panel
+  __syncthreads();
   const bool feeder = threadIdx.x == 128;  // warpgroup 1 reads every panel last
-  if (feeder)
-    for (int s = 0; s < N_SLOTS && s < ring.total; ++s) ring.fill(s);
+  if (feeder) ring.prime();
 
   // the two warpgroups take turns at the tensor cores: barrier 1 + wg is "wg's turn"
   const int wg = warp >> 2;

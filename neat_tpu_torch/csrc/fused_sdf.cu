@@ -120,44 +120,13 @@ template <bool EXACT> __device__ __forceinline__ float softplus100_mma(float z) 
   return fmaf(l, 0.0069314718055994531f, fmaxf(z, 0.f));
 }
 
-// The ring of N_SLOTS weight panels. Panel s of the block's sequence (the
-// tile's N_PANELS, again and again) sits in slot s % N_SLOTS once the slot's
-// `full` barrier has completed for the (s / N_SLOTS)-th time: a bulk copy
-// reports its bytes there. Each warp reports to `empty` when it has read the
-// panel; the eighth report frees the slot for panel s + N_SLOTS.
-struct PanelRing {
-  const __nv_bfloat16* W;
-  __nv_bfloat16* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  int seq, total;
-
-  __device__ __forceinline__ void fill(int s) {  // one thread
-    const int slot = s % N_SLOTS;
-    mma_tile::mbar_arrive_expect_tx(full + slot, mma_tile::PANEL_ELEMS * 2);
-    mma_tile::bulk_copy(slots + slot * mma_tile::PANEL_ELEMS,
-                        W + (s % N_PANELS) * mma_tile::PANEL_ELEMS, mma_tile::PANEL_ELEMS * 2,
-                        full + slot);
-  }
-  __device__ __forceinline__ const __nv_bfloat16* wait(int j) {
-    const int s = seq + j;
-    mma_tile::mbar_wait(full + (s % N_SLOTS), (s / N_SLOTS) & 1);
-    return slots + (s % N_SLOTS) * mma_tile::PANEL_ELEMS;
-  }
-  __device__ __forceinline__ void release(int j) {
-    if ((threadIdx.x & 31) == 0) mma_tile::mbar_arrive(empty + ((seq + j) % N_SLOTS));
-  }
-  // one thread of the warpgroup that reads a panel last: when the slot is
-  // free (its own warpgroup's reports are the last to come), ask for the
-  // panel that takes its place
-  __device__ __forceinline__ void refill(int j) {
-    const int s = seq + j;
-    if (s + N_SLOTS < total) {
-      mma_tile::mbar_wait(empty + (s % N_SLOTS), (s / N_SLOTS) & 1);
-      fill(s + N_SLOTS);
-    }
-  }
+// the ring of N_SLOTS weight panels (mma_tile::PanelRing): the tile's
+// N_PANELS panels, one after another in W
+struct SdfPanels {
+  static constexpr int COUNT = N_PANELS;
+  __device__ static long at(int p) { return (long)p * mma_tile::PANEL_ELEMS; }
 };
+using PanelRing = mma_tile::PanelRing<N_SLOTS, SdfPanels>;
 
 // one layer on the warp's strip: acc = A[16 x 16*KS*NP] W_l^T from the next NP
 // panels of the ring, KS k16 steps of each. By wgmma, two panels to a group,
@@ -247,21 +216,14 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 
   const int tiles = (n + TILE_POINTS - 1) / TILE_POINTS;
   const int mine = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < N_SLOTS; ++i) {
-      mma_tile::mbar_init(full + i, 1);   // the thread that asks for the copy, with the bytes it expects
-      mma_tile::mbar_init(empty + i, 8);  // one lane of each warp
-    }
-    mma_tile::mbar_init_fence();
-  }
+  PanelRing ring{W, slots, full, empty, 0, mine * N_PANELS};
+  if (threadIdx.x == 0) ring.init(8);  // one lane of each warp reads each panel
   __syncthreads();
   // warpgroup 1 reads every panel after warpgroup 0 (the turns below), so one
   // of its threads keeps the ring full: the first panels now, the rest as
   // slots free. (Without turns that thread may wait for warpgroup 0.)
-  PanelRing ring{W, slots, full, empty, 0, mine * N_PANELS};
   const bool feeder = threadIdx.x == 128;
-  if (feeder)
-    for (int s = 0; s < N_SLOTS && s < ring.total; ++s) ring.fill(s);
+  if (feeder) ring.prime();
 
   // the two warpgroups take turns at the tensor cores, layer by layer: while
   // one multiplies, the other runs its epilogue. Barrier 1 + wg is "wg's turn".

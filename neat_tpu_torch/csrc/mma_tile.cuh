@@ -3,9 +3,9 @@
 // same operands: warpgroup_mma (wgmma.mma_async m64n256k16: four warps, 64
 // rows, B read from shared memory once per warpgroup; the fast one) and
 // warp_mma (mma.sync m16n8k16 with ldmatrix: one warp, 16 rows, usable where
-// a tile has fewer than 64 rows). Beside them: the mbarrier and bulk-copy
-// calls of a ring of weight panels, and the named barriers by which two
-// warpgroups take turns at the tensor cores.
+// a tile has fewer than 64 rows). Beside them: the ring of weight panels
+// that bulk copies fill (PanelRing, with its mbarriers), and the named
+// barriers by which two warpgroups take turns at the tensor cores.
 //
 // The shape of a product. A block's tile of points is cut into strips of
 // WARP_ROWS = 16 rows, one strip per warp. A warp multiplies its strip of the
@@ -195,6 +195,22 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[32][4], uint64_t 
         MMA_TILE_D16(20), MMA_TILE_D16(24), MMA_TILE_D16(28)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
+// d = (accumulate ? d : 0) + A(desc_a) * B(desc_b): 64 rows x 64 columns, both
+// operands K-major swizzled panels in shared memory (B: 64 rows of a panel)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : MMA_TILE_D16(0), MMA_TILE_D16(4)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 #undef MMA_TILE_D16
 #undef MMA_TILE_D4
 
@@ -275,5 +291,60 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+
+// The ring of SLOTS weight panels that K1, the bf16 field forward and the
+// split backward's row-local pass take their products' B operands from.
+// Panel s of the block's sequence (the tile's Panels::COUNT panels, again and
+// again; the tile's panel p at element Panels::at(p) of W) sits in slot
+// s % SLOTS once the slot's `full` barrier has completed for the
+// (s / SLOTS)-th time: a bulk copy reports its bytes there. Each warp that
+// reads the panel reports to `empty`; the last of the `readers` reports
+// (init) frees the slot for panel s + SLOTS. A turn at the tensor cores
+// reads at most SLOTS panels, so a warpgroup that waits for its turn never
+// holds a slot that another one needs. slots: SLOTS panels on 1024 bytes;
+// full, empty: SLOTS barriers each.
+template <int SLOTS, class Panels>
+struct PanelRing {
+  const __nv_bfloat16* W;
+  __nv_bfloat16* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  int seq, total;
+
+  // one thread, before the block's barrier that publishes the barriers
+  __device__ __forceinline__ void init(int readers) const {
+    for (int i = 0; i < SLOTS; ++i) {
+      mbar_init(full + i, 1);  // the thread that asks for the copy, with the bytes it expects
+      mbar_init(empty + i, readers);
+    }
+    mbar_init_fence();
+  }
+  // one thread (the feeder), after that barrier: the first panels
+  __device__ __forceinline__ void prime() {
+    for (int s = 0; s < SLOTS && s < total; ++s) fill(s);
+  }
+  __device__ __forceinline__ void fill(int s) {
+    const int slot = s % SLOTS;
+    mbar_arrive_expect_tx(full + slot, PANEL_ELEMS * 2);
+    bulk_copy(slots + slot * PANEL_ELEMS, W + Panels::at(s % Panels::COUNT), PANEL_ELEMS * 2, full + slot);
+  }
+  __device__ __forceinline__ const __nv_bfloat16* wait(int j) {
+    const int s = seq + j;
+    mbar_wait(full + (s % SLOTS), (s / SLOTS) & 1);
+    return slots + (s % SLOTS) * PANEL_ELEMS;
+  }
+  __device__ __forceinline__ void release(int j) {
+    if ((threadIdx.x & 31) == 0) mbar_arrive(empty + ((seq + j) % SLOTS));
+  }
+  // the feeder, of the warpgroup that reads each panel last: when the slot is
+  // free, ask for the panel that takes its place
+  __device__ __forceinline__ void refill(int j) {
+    const int s = seq + j;
+    if (s + SLOTS < total) {
+      mbar_wait(empty + (s % SLOTS), (s / SLOTS) & 1);
+      fill(s + SLOTS);
+    }
+  }
+};
 
 }  // namespace mma_tile

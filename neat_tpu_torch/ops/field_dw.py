@@ -218,11 +218,12 @@ def dw_schedule_plain(ws: torch.Tensor, n: int, n_sm: int, shapes=CANONICAL_SHAP
 _SCHEDULES = {}  # (points rounded up, n_sm, device) -> (units, tiles) on the device
 
 
-def field_dw_kernel(ws: torch.Tensor, n: int, dparams: torch.Tensor) -> None:
+def dw_launch(ws: torch.Tensor, n: int, dparams: torch.Tensor) -> None:
     """Launch the GEMM and the ordered sum of its partials on the bf16
     workspace ``ws`` of n points: every dW entry of the flat f32 gradient
     vector ``dparams`` gets the layer's sum added in place (layer 8: the
-    primal term). CUDA tensors only."""
+    primal term). CUDA tensors only. Counts nothing: each caller's wrapper
+    counts its own launches."""
     np_ = ws_points(n)
     if not ws.is_cuda or ws.device != dparams.device:
         raise ValueError("the weight-gradient GEMM takes CUDA tensors on one device")
@@ -245,7 +246,13 @@ def field_dw_kernel(ws: torch.Tensor, n: int, dparams: torch.Tensor) -> None:
     err = fn(P(ws), P(units), P(tiles), P(partials), P(dparams),
              units.shape[0], tiles.shape[0], WS_ROWS, np_, _build.stream_ptr(ws))
     _build.check(err, "weight-gradient GEMM launch")
-    field_dw_kernel.launches += 1
+
+
+def field_dw_kernel(ws: torch.Tensor, n: int, dparams: torch.Tensor) -> None:
+    """K2-bwd's weight-gradient GEMM (``dw_launch``), counted."""
+    dw_launch(ws, n, dparams)
+    if n:
+        field_dw_kernel.launches += 1
 
 
 field_dw_kernel.launches = 0

@@ -3,40 +3,55 @@ backward that re-runs the forward (K3-bwd); and the helpers both field
 kernel pairs share.
 
 Replaces ``neat_tpu/ops/fused_field.py:_fwd_kernel`` (launched by
-``_fwd_pallas``) and ``_bwd_kernel`` (``_bwd_pallas``) with the two CUDA
-kernels in ``csrc/fused_field.cu``. The math is ``field_math`` below, the
-JAX package's ``_field_math`` in plain PyTorch: the 9-layer implicit chain
-with the sphere clamp, the spatial gradient of the clamped sdf by autograd,
-and the two heads. ``torch.autograd`` of ``field_math`` is the plain version
-of K3-bwd, as ``jax.vjp(_field_math)`` is the body of the TPU kernel.
+``_fwd_pallas``) and ``_bwd_kernel`` (``_bwd_pallas``). The math is
+``field_math`` below, the JAX package's ``_field_math`` in plain PyTorch:
+the 9-layer implicit chain with the sphere clamp, the spatial gradient of
+the clamped sdf by autograd, and the two heads. ``torch.autograd`` of
+``field_math`` is the plain version of the scalar K3-bwd, as
+``jax.vjp(_field_math)`` is the body of the TPU kernel.
 
 What bounds them on the H100: operations. K3-fwd does the stashing
 forward's 3.04 MFLOP per point and moves 76 bytes per point instead of
 9.3 KB; K3-bwd does forward plus backward, 10.04 MFLOP per point, and
 moves 100 bytes per point plus the gradients.
 
-What the design does about it. Both kernels are persistent: one 256-thread
-block per SM walks the 32-point tiles. The forward's reverse sweep needs
-the eight post-activations of the tile, which do not fit in shared memory
-beside the working buffers; they go to a per-block scratch in the stash's
-column layout (32 x 4057 compute-dtype values, L2-resident, rewritten by
-every tile) instead of an (N, 4057) array. K3-bwd runs the same forward
-tile into that scratch, with the f32 embedding, z8, rgb and grads beside
-it, and then the stash-replaying backward's tile body on the scratch: one
-forward body and one backward body serve K2 and K3 (``csrc/field_tile.cuh``).
-Parameter gradients are per-block f32 partials summed in block order, as
-in K2-bwd. In f32 the result is ``torch.autograd`` of ``field_math`` up to
-summation order. In bf16 the kernel rounds each backward product's
-operands to bf16 (the stash backward's choice), where autograd rounds the
-activation cotangents only.
+What the design does about it. bf16 K3-fwd is the tensor-core forward
+(``csrc/field_fwd_mma.cu``, shared with K2-fwd). bf16 K3-bwd is the split
+backward of K2 run chunk by chunk (``RECOMPUTE_CHUNK`` points): the same
+tensor-core forward recomputes the chunk's stash, the row-local pass
+(``fused_field_stash``) writes the chunk's weight-gradient operands into a
+workspace, and the GEMM of ``field_dw`` adds them into one f32 gradient
+vector, the chunks' bias gradients summed in chunk order. So the backward
+differentiates the activations K3-fwd returned, no stash outlives a chunk,
+and a chunk's stash and workspace (0.57 GB) stay well below the 3.5 GB the
+stashing path keeps at the main path's size. Its plain version is
+``fused_field_stash.field_bwd_recompute_split_plain``, in the same chunks.
 
-How it can be checked: on the same inputs K3 equals K2-fwd followed by
-K2-bwd entry for entry. Against autograd of ``field_math`` only the forward
-agrees entry for entry: the backward re-runs the forward, and a relu whose
-pre-activation two summation orders put on different sides of 0 changes
-that point's whole backward, so among thousands of points a few differ,
-in f32 too. That comparison is held in relative L2 norm (``chip_smoke.py``
-states the limits and prints autograd's difference from itself beside it).
+f32 keeps the first, scalar kernels (``csrc/fused_field.cu``), and bf16 has
+them as the "scalar" variants. Both are persistent: one 256-thread block
+per SM walks the 32-point tiles; the forward's reverse sweep needs the
+eight post-activations of the tile, which go to a per-block scratch in the
+stash's column layout (32 x 4057 compute-dtype values, L2-resident,
+rewritten by every tile) instead of an (N, 4057) array. The scalar K3-bwd
+runs the same forward tile into that scratch, with the f32 embedding, z8,
+rgb and grads beside it, and then the stash-replaying backward's tile body
+on the scratch: one forward body and one backward body serve K2 and K3
+(``csrc/field_tile.cuh``). Parameter gradients are per-block f32 partials
+summed in block order, as in K2-bwd. In f32 the result is
+``torch.autograd`` of ``field_math`` up to summation order. In bf16 the
+backward rounds each product's operands to bf16 (the stash backward's
+choice), where autograd rounds the activation cotangents only.
+
+How it can be checked: on the same inputs K3-bwd equals K2-fwd followed by
+K2-bwd: the split one, in dx and dd entry for entry and in the gradients up
+to the order of their sums (bf16); the scalar ones entry for entry (f32,
+and the bf16 "scalar" variants). Against autograd of ``field_math`` only
+the forward agrees entry for entry: the backward re-runs the forward, and a
+relu whose pre-activation two summation orders put on different sides of 0
+changes that point's whole backward, so among thousands of points a few
+differ, in f32 too. That comparison is held in relative L2 norm
+(``chip_smoke.py`` states the limits and prints autograd's difference from
+itself beside it).
 
 The TPU package's ceiling on differentiated points
 (``MAX_FUSED_FIELD_BWD_POINTS``) guarded a fault of that machine and has no
@@ -46,6 +61,7 @@ counterpart here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -332,6 +348,7 @@ def _fwd_launch(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
     return outs
 
 
+@functools.lru_cache(maxsize=None)
 def _mma_layout(n: int, max_blocks: int):
     """(blocks, per-block scratch in cd values, in f32 values) of the
     tensor-core forward for n points, as the C side decides them."""
@@ -371,13 +388,10 @@ def field_fwd_kernel_variant(flat_eff, x, d, icfg: ImplicitNetConfig, cd, varian
     return _fwd_launch(flat_eff, x, d, icfg, cd, variant)
 
 
-def field_bwd_kernel(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd):
-    """Launch K3-bwd and the sum of its per-block partial gradients:
-    -> (deff (38 f32 tensors shaped like flat_eff), dx (N,3), dd (N,3)).
-    ``cots`` are the contiguous f32 cotangents (N,1), (N,3), (N,3), (N,6)."""
+def _bwd_scalar_launch(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd):
+    """The fused scalar K3-bwd (``csrc/fused_field.cu``) and the sum of its
+    per-block partial gradients: (dparams, dx, dd)."""
     n = x.shape[0]
-    _check_cotangents(cots, n)
-    _check_operands(flat_eff, x, d, cd, cots)
     kw = dict(dtype=torch.float32, device=x.device)
     dx, dd = torch.empty((n, 3), **kw), torch.empty((n, 3), **kw)
     n_sm = _n_sm(x)
@@ -396,11 +410,123 @@ def field_bwd_kernel(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd):
         n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
     )
     _build.check(err, "fused field recompute backward kernel launch")
-    field_bwd_kernel.launches += 1
+    return dparams, dx, dd
+
+
+# K3-bwd in bf16 runs the split backward over chunks of this many points (a
+# multiple of the tensor-core forward's 128-point tile and of the workspace's
+# 64-point chunk): a chunk's stash is 152 MB and its workspace 421 MB (9,298
+# and 25,704 bytes a point), where K2 keeps 0.93 + 2.58 GB at the main path's
+# 100,352 points
+RECOMPUTE_CHUNK = 16_384
+
+
+def recompute_chunks(n: int, chunk: int = RECOMPUTE_CHUNK) -> List[Tuple[int, int]]:
+    """[start, end) of each chunk of n points, in order."""
+    return [(c0, min(c0 + chunk, n)) for c0 in range(0, n, chunk)]
+
+
+def field_bwd_chunk_fwd(flat_eff, x, d, icfg: ImplicitNetConfig, packed=None):
+    """K3-bwd's recompute of one chunk: K2-fwd's tensor-core entry with its
+    stash (``field_fwd_mma_stash``), counted here and not by K2-fwd: ->
+    sdf, grads, rgb, att, stash_cd, stash_f32. ``packed``: its weights
+    (``pack_field_weights_gather``), packed here when None."""
+    from .fused_field_stash import _fwd_stash_launch
+
+    out = _fwd_stash_launch(flat_eff, x, d, icfg, torch.bfloat16, "mma", packed)
+    field_bwd_chunk_fwd.launches += 1
+    return out
+
+
+def field_bwd_chunk_rowlocal(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig,
+                             w_bwd=None):
+    """The split backward's tensor-core row-local pass on one chunk's stash:
+    -> (dparams, dx, dd, workspace), as
+    ``fused_field_stash._bwd_rowlocal_launch`` returns them. ``w_bwd``: its
+    weights (``pack_field_bwd_weights_gather``), packed here when None."""
+    from .fused_field_stash import _bwd_rowlocal_launch
+
+    out = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, torch.bfloat16, "mma", w_bwd)
+    field_bwd_chunk_rowlocal.launches += 1
+    return out
+
+
+def field_bwd_chunk_dw(ws, n: int, dparams) -> None:
+    """The weight-gradient GEMM on one chunk's workspace, added into dparams."""
+    from .field_dw import dw_launch
+
+    dw_launch(ws, n, dparams)
+    field_bwd_chunk_dw.launches += 1
+
+
+for _fn in (field_bwd_chunk_fwd, field_bwd_chunk_rowlocal, field_bwd_chunk_dw):
+    _fn.launches = 0
+
+
+def _bwd_split_launch(flat_eff, x, d, cots, icfg: ImplicitNetConfig):
+    """bf16 K3-bwd as the split backward, chunk by chunk: the tensor-core
+    forward with its stash, the row-local pass on it, the GEMM on its
+    workspace. So the activations it differentiates are K3-fwd's own. Both
+    kernels' weights are packed once for all chunks. Each chunk's gradients
+    (bias partials, then the GEMM's dW added in place) are summed into one
+    f32 vector in chunk order: (dparams, dx, dd)."""
+    from .fused_field_stash import pack_field_bwd_weights_gather, pack_field_weights_gather
+
+    n = x.shape[0]
+    kw = dict(dtype=torch.float32, device=x.device)
+    dx, dd = torch.empty((n, 3), **kw), torch.empty((n, 3), **kw)
+    dparams = torch.zeros((_n_param_grads(),), **kw)
+    packed = pack_field_weights_gather(flat_eff, torch.bfloat16)
+    w_bwd = pack_field_bwd_weights_gather(flat_eff, torch.bfloat16)
+    for c0, c1 in recompute_chunks(n):
+        xc, dc, cc = x[c0:c1], d[c0:c1], tuple(c[c0:c1] for c in cots)
+        _, grads, rgb, _, scd, sf32 = field_bwd_chunk_fwd(flat_eff, xc, dc, icfg, packed)
+        part, dx[c0:c1], dd[c0:c1], ws = field_bwd_chunk_rowlocal(
+            flat_eff, xc, dc, scd, sf32, rgb, grads, cc, icfg, w_bwd)
+        del scd, sf32  # the stash is spent: the GEMM reads the workspace
+        field_bwd_chunk_dw(ws, c1 - c0, part)
+        dparams += part
+    return dparams, dx, dd
+
+
+# the bf16 K3-bwd beside the model's (the split backward over chunks):
+# "scalar", the fused scalar kernel that re-runs the scalar forward tile,
+# which f32 runs
+BWD_VARIANTS = ("scalar",)
+
+
+def _bwd_launch(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd, variant: str):
+    _check_cotangents(cots, x.shape[0])
+    _check_operands(flat_eff, x, d, cd, cots)
+    if variant == "scalar":
+        dparams, dx, dd = _bwd_scalar_launch(flat_eff, x, d, cots, icfg, cd)
+    else:
+        dparams, dx, dd = _bwd_split_launch(flat_eff, x, d, cots, icfg)
     return _split_param_grads(dparams, flat_eff), dx, dd
 
 
+def field_bwd_kernel(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd):
+    """Launch K3-bwd: -> (deff (38 f32 tensors shaped like flat_eff), dx (N,3),
+    dd (N,3)). ``cots`` are the contiguous f32 cotangents (N,1), (N,3), (N,3),
+    (N,6). bf16 runs the split backward over chunks of ``RECOMPUTE_CHUNK``
+    points, f32 the fused scalar kernel."""
+    out = _bwd_launch(flat_eff, x, d, cots, icfg, cd, "split" if cd == torch.bfloat16 else "scalar")
+    field_bwd_kernel.launches += 1
+    return out
+
+
 field_bwd_kernel.launches = 0
+
+
+def field_bwd_kernel_variant(flat_eff, x, d, cots, icfg: ImplicitNetConfig, cd, variant: str):
+    """K3-bwd by one of ``BWD_VARIANTS`` on bf16 CUDA tensors, for holding
+    the kernels against each other on the card; nothing on the model's path
+    calls it and it is not counted."""
+    if cd != torch.bfloat16:
+        raise TypeError("the backward variants are bf16")
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"no backward variant {variant!r}")
+    return _bwd_launch(flat_eff, x, d, cots, icfg, cd, variant)
 
 
 # ---------------------------------------------------------------------------

@@ -54,19 +54,22 @@ The bodies of both kernels for one tile are device functions in
 ``csrc/field_tile.cuh``: the recompute pair (``fused_field``, K3) runs the
 same two bodies on a per-block scratch in place of the stash.
 
-bf16 K2-bwd is split (``field_bwd_split_plain`` is its plain version): the
-tile stores every weight-gradient operand, rounded to bf16, into a
-feature-major workspace instead of adding dW into the partials (which keep
+bf16 K2-bwd is split (``field_bwd_split_plain`` is its plain version): a
+row-local pass stores every weight-gradient operand, rounded to bf16, into
+a feature-major workspace instead of adding dW into partials (which keep
 the bias gradients), and a GEMM on the tensor cores sums them
-(``field_dw``, ``csrc/field_dw_mma.cu``). Its row-local pass is the scalar
-tile with its ``tile_wgrad`` calls replaced by those stores, so it equals
-the fused scalar kernel in dx, dd and every bias gradient bit for bit. f32
-keeps the fused scalar kernel.
+(``field_dw``, ``csrc/field_dw_mma.cu``). The model's row-local pass is on
+the tensor cores (``csrc/field_bwd_mma.cu``, weights packed by
+``pack_field_bwd_weights``). The scalar tile with its
+``tile_wgrad`` calls replaced by those stores stays as the "split" variant:
+it equals the fused scalar kernel in dx, dd and every bias gradient bit for
+bit. f32 keeps the fused scalar kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -204,12 +207,19 @@ def _pe_tangent_x_transpose(cot_edot, e, x, xdot, multires):
     return out
 
 
-def _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
+def _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype, mats=None):
     """The row-local part of ``field_bwd_stashed``: (prods, dbs, dx, dd).
     ``prods[l]`` lists the (input, cotangent) pairs whose products
     input^T cotangent, summed over the points, are dW_l: the implicit layers
-    a primal and a tangent pair, the heads one. ``dbs[l]`` is db_l."""
-    iw, rw, aw = _unflatten_eff(flat_eff)
+    a primal and a tangent pair, the heads one. ``dbs[l]`` is db_l.
+    ``mats`` = (fwd, tr): the (in, out) matrices of the tangent forward's
+    products (layers 0..7) and of the transposed products (all 19 layers,
+    multiplied as their transposes); by default both are flat_eff's."""
+    if mats is None:
+        mats = (flat_eff[0::2], flat_eff[0::2])
+    fwd, tr = mats
+    rw = [(tr[l], None) for l in range(N_IMPLICIT_LAYERS, N_IMPLICIT_LAYERS + N_HEAD_LAYERS)]
+    aw = [(tr[l], None) for l in range(N_IMPLICIT_LAYERS + N_HEAD_LAYERS, len(tr))]
     cd = compute_dtype
     el = torch.promote_types(torch.float32, cd)
     c_sdf, c_g, c_rgb, c_att = (c.to(el) for c in cots)
@@ -268,15 +278,14 @@ def _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
     edot_cd = edot.to(cd)
     hdot = edot_cd
     tinp, zdots = [], []
-    for l in range(N_IMPLICIT_LAYERS):
+    for l in range(N_IMPLICIT_LAYERS - 1):
         if l == 4:
             hdot = _skip_concat(hdot, edot_cd)
         tinp.append(hdot)
-        w, _ = iw[l]
-        zdot = _mm(hdot, w, cd, el)
+        zdot = _mm(hdot, fwd[l], cd, el)
         zdots.append(zdot)
-        if l < N_IMPLICIT_LAYERS - 1:
-            hdot = (s[l] * zdot).to(cd)
+        hdot = (s[l] * zdot).to(cd)
+    tinp.append(hdot)  # layer 8's tangent input: its dW is a column sum (one-hot seed)
 
     # combined reverse sweep (primal + tangent chains)
     v = torch.cat([c_sdf * m_raw, C_f], dim=-1)
@@ -286,7 +295,7 @@ def _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
     ne = e.shape[-1]
     prods_i, dbs_i = [None] * N_IMPLICIT_LAYERS, [None] * N_IMPLICIT_LAYERS
     for l in range(N_IMPLICIT_LAYERS - 1, -1, -1):
-        w, _ = iw[l]
+        w = tr[l]
         if l == 0:
             inp_l = e_cd
         elif l == 4:
@@ -344,17 +353,22 @@ def field_bwd_rowlocal_plain(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtyp
     ``field_bwd_stashed``'s own); col8 is layer 8's tangent term, the f32
     column sum of its tangent input (its cotangent is the one-hot sdf seed),
     which belongs to dW_8's column 0."""
-    cd = compute_dtype
-    el = torch.promote_types(torch.float32, cd)
-    prods, dbs, dx, dd = _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, cd)
+    prods, dbs, dx, dd = _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype)
     shapes = tuple(tuple(w.shape) for w in flat_eff[0::2])
+    return _rowlocal_outputs(prods, dbs, dx, dd, x.shape[0], compute_dtype, shapes)
+
+
+def _rowlocal_outputs(prods, dbs, dx, dd, n, cd, shapes):
+    """_bwd_rowlocal's products as the row-local pass's outputs: (workspace,
+    dbs, col8, dx, dd)."""
+    el = torch.promote_types(torch.float32, cd)
     ops = {}
     for l, pairs in enumerate(prods):
         for (a, y), (kin, kcot) in zip(pairs, (("in", "cot"), ("tin", "tcot"))):
             if l == N_IMPLICIT_LAYERS - 1 and kin == "tin":
                 continue
             ops[kin, l], ops[kcot, l] = a, y
-    ws = DW.pack_workspace(ops, x.shape[0], cd, shapes)
+    ws = DW.pack_workspace(ops, n, cd, shapes)
     col8 = torch.sum(prods[N_IMPLICIT_LAYERS - 1][1][0].to(cd).to(el), dim=0)
     return ws, dbs, col8, dx, dd
 
@@ -374,6 +388,38 @@ def field_bwd_split_plain(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype):
     for dw, db in zip(dws, dbs):
         deff += [dw, db]
     return tuple(deff), dx, dd
+
+
+def field_bwd_recompute_split_plain(flat_eff, x, d, cots, icfg, rcfg, compute_dtype, chunk=None):
+    """The plain version of the bf16 K3-bwd, chunk by chunk as the kernels
+    run it (``fused_field.recompute_chunks``): the forward with its
+    residuals (``field_fwd_res``), packed into the stash layout and read back
+    (``_pack_res``), the row-local pass (``field_bwd_rowlocal_plain``), every
+    dW_l as one sum over the chunk's workspace (``field_dw.field_dw_plain``)
+    with layer 8's tangent column added; each chunk's gradients summed into
+    the total in chunk order. -> (deff, dx, dd). A point's dx and dd do not
+    depend on the chunking; the gradients differ from
+    ``field_bwd_split_plain``'s by the order of their f32 sums only."""
+    from .fused_field import RECOMPUTE_CHUNK, recompute_chunks
+
+    cd = compute_dtype
+    shapes = tuple(tuple(w.shape) for w in flat_eff[0::2])
+    el = torch.promote_types(torch.float32, cd)
+    total = [torch.zeros(w.shape, dtype=el, device=x.device) for w in flat_eff]
+    dxs, dds = [x.new_zeros((0, 3))], [x.new_zeros((0, 3))]
+    for c0, c1 in recompute_chunks(x.shape[0], chunk or RECOMPUTE_CHUNK):
+        xc, dc, cc = x[c0:c1], d[c0:c1], [c[c0:c1] for c in cots]
+        (_, grads, rgb, _), res = field_fwd_res(flat_eff, xc, dc, icfg, rcfg, cd)
+        res = _unpack_res(*_pack_res(res), rgb, grads, icfg, rcfg)
+        ws, dbs, col8, dx, dd = field_bwd_rowlocal_plain(flat_eff, xc, dc, res, cc, icfg, rcfg, cd)
+        dws = DW.field_dw_plain(ws, shapes)
+        dws[N_IMPLICIT_LAYERS - 1][:, 0] += col8
+        for l, (dw, db) in enumerate(zip(dws, dbs)):
+            total[2 * l] += dw
+            total[2 * l + 1] += db
+        dxs.append(dx)
+        dds.append(dd)
+    return tuple(total), torch.cat(dxs), torch.cat(dds)
 
 
 # ---------------------------------------------------------------------------
@@ -609,6 +655,130 @@ def field_fwd_plain_packed(x, d, w, b, icfg: ImplicitNetConfig, cd):
 
 
 # ---------------------------------------------------------------------------
+# the packed weights of the tensor-core row-local pass (csrc/field_bwd_mma.cu)
+# ---------------------------------------------------------------------------
+
+# csrc/field_bwd_mma.cu hard-codes the same numbers. (part, layer, first k
+# row) of each panel (K1's 256 rows x 64 k, swizzled), in the order a tile
+# consumes them: each head's backward (its hidden layers, then its first
+# layer's leading rows and its feature rows), the tangent forward, the
+# combined sweep. "tr" panels hold the transposed product's W_l[n, k0 + k] at
+# row n (the forward's "sweep" panels); "trlead" and "trfeat" a head's first
+# layer split at its 256 feature rows: W_l[n, k0 + k] for the leading rows
+# n < 33 or 9 and W_l[n_lead + n, k0 + k]; "tr8" layer 8's feature columns
+# W_8[n, 1 + k0 + k]; "fwd" K1's panels, W_l[k0 + k, n] at row n.
+BWD_PANELS = (
+    tuple(
+        p
+        for l0 in (9, 14)
+        for p in tuple(("tr", l, k0) for l in (l0 + 3, l0 + 2, l0 + 1) for k0 in _K4)
+        + tuple(("trlead", l0, k0) for k0 in _K4) + tuple(("trfeat", l0, k0) for k0 in _K4)
+    )
+    + tuple(("fwd", l, k0) for l, k0 in K1.PANELS)
+    + tuple(("tr8", 8, k0) for k0 in _K4)
+    + tuple(("tr", l, k0) for l in range(7, -1, -1) for k0 in _K4)
+)
+N_BWD_PANELS = len(BWD_PANELS)  # 105
+# after the panels: W_13^T (3 x 256) and W_18^T (6 x 256), the output
+# layers' transposed products of depth 3 and 6, and W_8's sdf column (256)
+BWD_W13_OFF = N_BWD_PANELS * K1.PANEL_ELEMS
+BWD_W18_OFF = BWD_W13_OFF + 3 * 256
+BWD_W8_OFF = BWD_W18_OFF + 6 * 256
+BWD_W_TOTAL = BWD_W8_OFF + 256
+
+
+def _bwd_panel(ws, part, l, k0):
+    """One panel (256 rows x 64 k, not yet swizzled) of the (in, out) matrices ws."""
+    w = ws[l]
+    p = w.new_zeros((K1.PANEL_ROWS, K1.PANEL_K))
+    if part == "tr":
+        blk = w[:, k0 : k0 + 64]
+    elif part == "trlead":
+        blk = w[: N_LEAD[l], k0 : k0 + 64]
+    elif part == "trfeat":
+        blk = w[N_LEAD[l] : N_LEAD[l] + 256, k0 : k0 + 64]
+    elif part == "tr8":
+        blk = w[:, 1 + k0 : 1 + k0 + 64]
+    else:
+        blk = w[k0 : k0 + 64].T
+    p[: blk.shape[0], : blk.shape[1]] = blk
+    return p
+
+
+def pack_field_bwd_weights(flat_eff):
+    """The 19 (in, out) matrices of ``flat_eff`` as the tensor-core row-local
+    pass reads them: (BWD_W_TOTAL,) in the matrices' dtype, the
+    shared-memory image of every panel of BWD_PANELS in order, then W_13^T,
+    W_18^T and W_8's sdf column. The pass needs no bias."""
+    ws = [w.detach() for w in flat_eff[0::2]]
+    panels = torch.stack([_bwd_panel(ws, *p) for p in BWD_PANELS])
+    return torch.cat([K1._swizzle(panels).reshape(-1), ws[13].T.reshape(-1), ws[18].T.reshape(-1),
+                      ws[8][:, 0]])
+
+
+_BWD_GATHER = {}  # device -> weight positions, built once
+
+
+def pack_field_bwd_weights_gather(flat_eff, cd):
+    """``pack_field_bwd_weights`` in one gather, as the wrapper runs it on
+    every launch, the matrices cast to ``cd`` (``pack_field_weights_gather``'s
+    method)."""
+    from .fused_field import CANONICAL_SHAPES
+
+    dev = flat_eff[0].device
+    if dev not in _BWD_GATHER:
+        sizes = [i * o for i, o in CANONICAL_SHAPES]
+        pos = torch.arange(1, 1 + sum(sizes)).split(sizes)
+        flat = []
+        for wp, sh in zip(pos, CANONICAL_SHAPES):
+            flat += [wp.reshape(sh), None]
+        _BWD_GATHER[dev] = pack_field_bwd_weights(flat).to(dev)
+    ws = flat_eff[0::2]
+    return torch.cat([ws[0].new_zeros(1, dtype=cd), *(x.detach().to(cd).reshape(-1) for x in ws)])[_BWD_GATHER[dev]]
+
+
+def unpack_field_bwd_weights(w):
+    """The inverse of ``pack_field_bwd_weights``: (fwd, tr), the canonical
+    (in, out) matrices read back from the panels the pass multiplies: fwd[l]
+    (layers 0..7) from the tangent forward's panels, tr[l] (all 19 layers)
+    from the transposed products' panels and, for layers 8, 13 and 18, the
+    rows after them. Each is contiguous, as the operands are."""
+    from .fused_field import CANONICAL_SHAPES
+
+    panels = K1._swizzle(w[:BWD_W13_OFF].reshape(N_BWD_PANELS, K1.PANEL_ROWS, K1.PANEL_K))
+    by = {}  # (part, layer) -> [panels in k0 order]
+    for i, (part, l, _) in enumerate(BWD_PANELS):
+        by.setdefault((part, l), []).append(panels[i])
+    ks = lambda ps: torch.cat(list(ps), dim=1)  # (256 rows n, 64 * len k)
+    fwd = [ks(by["fwd", l]).T[: i, : o].contiguous() for l, (i, o) in enumerate(CANONICAL_SHAPES[:8])]
+    tr = []
+    for l, (i, o) in enumerate(CANONICAL_SHAPES):
+        if l == 8:
+            m = torch.cat([w[BWD_W8_OFF:BWD_W_TOTAL, None], ks(by["tr8", 8])], dim=1)
+        elif l in (9, 14):
+            m = torch.cat([ks(by["trlead", l])[: N_LEAD[l]], ks(by["trfeat", l])], dim=0)
+        elif l in (13, 18):
+            m = (w[BWD_W13_OFF:BWD_W18_OFF] if l == 13 else w[BWD_W18_OFF:BWD_W8_OFF]).reshape(o, 256).T
+        else:
+            m = ks(by["tr", l])
+        tr.append(m[:i, :o].contiguous())
+    return fwd, tr
+
+
+def field_bwd_plain_packed(flat_eff, x, d, res, cots, w, icfg, rcfg, compute_dtype):
+    """``field_bwd_rowlocal_plain`` with every product's matrix read from the
+    tensor-core row-local pass's packed buffer ``w``
+    (``unpack_field_bwd_weights``): the tangent forward's from its forward
+    panels, the transposed products' from theirs. flat_eff gives the shapes
+    alone. Equal to ``field_bwd_rowlocal_plain`` bit for bit: the proof on
+    the CPU that the packing holds every operand where the kernel reads it."""
+    shapes = tuple(tuple(m.shape) for m in flat_eff[0::2])
+    prods, dbs, dx, dd = _bwd_rowlocal(flat_eff, x, d, res, cots, icfg, rcfg, compute_dtype,
+                                       mats=unpack_field_bwd_weights(w))
+    return _rowlocal_outputs(prods, dbs, dx, dd, x.shape[0], compute_dtype, shapes)
+
+
+# ---------------------------------------------------------------------------
 # CUDA launchers
 # ---------------------------------------------------------------------------
 
@@ -616,7 +786,9 @@ W_CD = 4057  # 7 x 256 + 217 implicit post-activations + 2 x 4 x 256 head ones
 W_F32 = 296  # embedding (39) + z8 (257)
 
 
-def _fwd_stash_launch(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
+def _fwd_stash_launch(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str, packed=None):
+    """K2-fwd by ``variant``; ``packed``: the "mma" kernel's weights as
+    ``pack_field_weights_gather`` gives them, packed here when None."""
     _check_operands(flat_eff, x, d, cd)
     n = x.shape[0]
     kw = dict(device=x.device)
@@ -630,7 +802,7 @@ def _fwd_stash_launch(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str)
         return sdf, grads, rgb, att, scd, sf32
     P = _build.ptr
     if variant == "mma":
-        w, b = pack_field_weights_gather(flat_eff, cd)
+        w, b = pack_field_weights_gather(flat_eff, cd) if packed is None else packed
         err = _mma_entry("field_fwd_mma_stash")(
             P(x), P(d), P(w), P(b), P(sdf), P(grads), P(rgb), P(att), P(scd), P(sf32), n, _n_sm(x),
             icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
@@ -691,20 +863,59 @@ def _bwd_layout(n: int, max_blocks: int):
     return blocks.value, n_params.value, scratch.value
 
 
-# the bf16 backwards. "split" (the model's): the row-local pass, the scalar
-# tile, writes the weight-gradient operands into a workspace and the GEMM of
-# ``field_dw`` sums them. "scalar": the fused scalar kernel, which f32 runs
-# and which K3-bwd is held against.
+# the row-local passes that write the workspace: "mma", the tensor-core pass
+# (``csrc/field_bwd_mma.cu``) that bf16 K2-bwd and, chunk by chunk, K3-bwd
+# run; "split", the scalar tile with EMIT, which it is held against
+ROWLOCAL_VARIANTS = ("mma", "split")
+# the bf16 K2-bwds beside the model's (the "mma" row-local pass, then the
+# GEMM of ``field_dw``): "split", the same with the scalar row-local pass;
+# "scalar", the fused scalar kernel, which f32 runs and which the scalar
+# K3-bwd is held against
 BWD_VARIANTS = ("split", "scalar")
 _WS_ROW_TABLE = (ctypes.c_int * len(DW.ws_row_table()))(*DW.ws_row_table())  # the producer's WsOut rows
 
 
-def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str):
+def bwd_mma_table():
+    """The tensor-core row-local pass's int table (its ``Tables``): the
+    workspace rows (``ws_row_table``), each bias's offset in a block's
+    partials and in the gradient vector (b_l after dW_l), then the gradient
+    offset of dW_8 and its row length (layer 8's tangent column goes to
+    dW_8[k][0])."""
+    from .fused_field import CANONICAL_SHAPES
+
+    outs = [o for _, o in CANONICAL_SHAPES]
+    offs = DW.param_offsets()
+    boff = [sum(outs[:l]) for l in range(len(outs) + 1)]
+    gbias = [offs[l] + i * o for l, (i, o) in enumerate(CANONICAL_SHAPES)]
+    return DW.ws_row_table() + boff + gbias + [offs[8], outs[8]]
+
+
+_BWD_MMA_TABLE = (ctypes.c_int * len(bwd_mma_table()))(*bwd_mma_table())
+# a block's bias partials: every bias, then layer 8's tangent column
+_BWD_MMA_NB = _BWD_MMA_TABLE[len(DW.ws_row_table()) + N_IMPLICIT_LAYERS + 2 * N_HEAD_LAYERS] + 256
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_mma_layout(n: int, max_blocks: int):
+    """(blocks, bias partial floats a block, scratch floats a block) of the
+    tensor-core row-local pass for n points, as the C side decides them."""
+    fn = _build.load("field_bwd_mma").field_bwd_mma_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.restype = None
+    blocks, n_bias, scratch = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    fn(n, max_blocks, ctypes.byref(blocks), ctypes.byref(n_bias), ctypes.byref(scratch))
+    return blocks.value, n_bias.value, scratch.value
+
+
+def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str,
+                         w_bwd=None):
     """K2-bwd's tile kernel and the sum of its per-block partials: (dparams,
     dx, dd, workspace). "scalar" (fused): dparams holds every gradient,
-    workspace is None. "split": dparams holds the bias gradients and
-    layer 8's tangent column, its other dW entries 0; the workspace
-    (``field_dw``) holds the weight-gradient operands."""
+    workspace is None. "split" and "mma": dparams holds the bias gradients
+    and layer 8's tangent column, its other dW entries 0; the workspace
+    (``field_dw``) holds the weight-gradient operands. ``w_bwd``: the "mma"
+    pass's weights as ``pack_field_bwd_weights_gather`` gives them, packed
+    here when None."""
     n = x.shape[0]
     _check_cotangents(cots, n)
     if scd.shape != (n, W_CD) or scd.dtype != cd or sf32.shape != (n, W_F32):
@@ -714,6 +925,30 @@ def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, 
     dx = torch.empty((n, 3), dtype=torch.float32, **kw)
     dd = torch.empty((n, 3), dtype=torch.float32, **kw)
     n_sm = _n_sm(x)
+    P = _build.ptr
+    ins = (P(x), P(d), P(scd), P(sf32), P(rgb), P(grads), *(P(c) for c in cots))
+    ws = None
+    if variant in ROWLOCAL_VARIANTS:
+        width = DW.ws_points(n)
+        ws = torch.empty((DW.WS_ROWS, width), dtype=torch.bfloat16, **kw)
+        rows = ctypes.cast(_WS_ROW_TABLE, ctypes.c_void_p)
+    if variant == "mma":
+        n_blocks, n_bias, n_scratch = _bwd_mma_layout(n, n_sm)
+        dparams = torch.zeros((sum(w.numel() for w in flat_eff),), dtype=torch.float32, **kw)
+        partials = torch.empty((n_blocks, n_bias), dtype=torch.float32, **kw)
+        scratch = torch.empty((n_blocks, n_scratch), dtype=torch.float32, **kw)
+        fn = _build.load("field_bwd_mma").field_bwd_mma_rowlocal
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        if n_bias != _BWD_MMA_NB:
+            raise ValueError("the tensor-core row-local pass's bias partials do not match the layer table")
+        if w_bwd is None:
+            w_bwd = pack_field_bwd_weights_gather(flat_eff, cd)
+        err = fn(*ins, P(w_bwd), P(dx), P(dd), P(dparams), P(partials),
+                 P(scratch), P(ws), ctypes.cast(_BWD_MMA_TABLE, ctypes.c_void_p), n, n_sm, width,
+                 icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x))
+        _build.check(err, "tensor-core row-local pass launch")
+        return dparams, dx, dd, ws
     n_blocks, n_p, n_scratch = _bwd_layout(n, n_sm)
     if n_p != sum(w.numel() for w in flat_eff):
         raise ValueError("the fused field backward's layer table does not match the weights")
@@ -721,21 +956,16 @@ def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, 
     w_all, wt_all, _ = _pack_weights(flat_eff, cd)
     partials = torch.empty((n_blocks, n_p), dtype=torch.float32, **kw)
     scratch = torch.empty((n_blocks, n_scratch), dtype=torch.float32, **kw)
-    P = _build.ptr
-    args = (P(x), P(d), P(scd), P(sf32), P(rgb), P(grads), *(P(c) for c in cots),
-            P(w_all), P(wt_all), P(dx), P(dd), P(dparams), P(partials), P(scratch))
+    args = (*ins, P(w_all), P(wt_all), P(dx), P(dd), P(dparams), P(partials), P(scratch))
     if variant == "split":
-        width = DW.ws_points(n)
-        ws = torch.empty((DW.WS_ROWS, width), dtype=torch.bfloat16, **kw)
         covered = -(-n // 32) * 32  # the 32-point tiles write every column before this
         if covered < width:
             ws[:, covered:].zero_()
         err = _entry("fused_field_stash", "field_bwd_split", cd, 19, 3)(
-            *args, P(ws), ctypes.cast(_WS_ROW_TABLE, ctypes.c_void_p), n, n_sm, width,
-            icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+            *args, P(ws), rows, n, n_sm, width, icfg.sdf_bounding_sphere, icfg.sphere_scale,
+            _build.stream_ptr(x),
         )
     else:
-        ws = None
         err = _entry("fused_field_stash", "field_bwd_stash", cd, 17, 2)(
             *args, n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
         )
@@ -743,11 +973,13 @@ def _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, 
     return dparams, dx, dd, ws
 
 
-def field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig):
-    """Launch the split K2-bwd's row-local pass (bf16): -> (dparams, dx, dd,
-    workspace), as ``_bwd_rowlocal_launch`` describes them; its plain version
-    is ``field_bwd_rowlocal_plain``."""
-    out = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, torch.bfloat16, "split")
+def field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig,
+                              variant: str = "mma"):
+    """Launch the split K2-bwd's row-local pass (bf16; ``variant`` of
+    ``ROWLOCAL_VARIANTS``, the model's by default): -> (dparams, dx, dd,
+    workspace), as ``_bwd_rowlocal_launch`` describes them; its plain
+    version is ``field_bwd_rowlocal_plain``."""
+    out = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, torch.bfloat16, variant)
     field_bwd_rowlocal_kernel.launches += 1
     return out
 
@@ -756,8 +988,11 @@ field_bwd_rowlocal_kernel.launches = 0
 
 
 def _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: str):
-    if variant == "split":
-        dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg)
+    """K2-bwd whose row-local pass is ``variant``: "mma" or "split" (then the
+    GEMM), or "scalar", the fused scalar kernel."""
+    if variant in ROWLOCAL_VARIANTS:
+        dparams, dx, dd, ws = field_bwd_rowlocal_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg,
+                                                        variant)
         DW.field_dw_kernel(ws, x.shape[0], dparams)
     else:
         dparams, dx, dd, _ = _bwd_rowlocal_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant)
@@ -767,10 +1002,11 @@ def _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd, variant: 
 def field_bwd_stash_kernel(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg: ImplicitNetConfig, cd):
     """Launch K2-bwd: -> (deff (38 f32 tensors shaped like flat_eff), dx (N,3),
     dd (N,3)). ``cots`` are the contiguous f32 cotangents (N,1), (N,3), (N,3),
-    (N,6). bf16 runs the split backward (its row-local pass, then the
-    weight-gradient GEMM of ``field_dw``), f32 the fused scalar kernel."""
+    (N,6). bf16 runs the split backward (the tensor-core row-local pass,
+    then the weight-gradient GEMM of ``field_dw``), f32 the fused scalar
+    kernel."""
     out = _bwd_launch(flat_eff, x, d, scd, sf32, rgb, grads, cots, icfg, cd,
-                      "split" if cd == torch.bfloat16 else "scalar")
+                      "mma" if cd == torch.bfloat16 else "scalar")
     field_bwd_stash_kernel.launches += 1
     return out
 
@@ -782,7 +1018,7 @@ def field_bwd_stash_kernel_variant(flat_eff, x, d, scd, sf32, rgb, grads, cots, 
                                    cd, variant: str):
     """K2-bwd by one of ``BWD_VARIANTS`` on bf16 CUDA tensors, for holding the
     kernels against each other on the card; nothing on the model's path
-    calls it, and only the split variant's own kernels count their launches."""
+    calls it, and only the "split" variant's own kernels count their launches."""
     if cd != torch.bfloat16:
         raise TypeError("the backward variants are bf16")
     if variant not in BWD_VARIANTS:

@@ -10,8 +10,10 @@ score 1 or 2): f32 1e-3 — the kernels sum in another order than cuBLAS;
 bf16 3e-2 — also the rare activation whose f32 sum rounds to the
 neighbouring bf16 value. K3-bwd re-runs its forward, so against autograd
 of ``field_math`` a relu that an f32 sum in another order moves across 0
-changes a point's whole backward: it is held entrywise (1e-6) against
-K2-fwd + K2-bwd, which share its tile bodies, and in relative L2 norm (f32
+changes a point's whole backward: it is held entrywise against K2-fwd +
+K2-bwd, which run its kernels (f32 and the bf16 "scalar" variant 1e-6; the
+bf16 split K3-bwd exactly in dx and dd, 1e-4 in the gradients, whose f32
+sums it takes in chunks), and in relative L2 norm (f32
 5e-3, bf16 0.15) against autograd; in f32 also against autograd in f64
 over eight draws, in relative L2 norm off the crossings (1e-5), with every point
 that is off explained by one. K4: rays
@@ -110,12 +112,12 @@ def _field_inputs(n, seed):
 
 @pytest.mark.parametrize("n_points", [1, 127, 129, 1000])  # ragged against the 32-point tile and 64-point chunk
 def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
-    """The split bf16 K2-bwd (the model's): dx, dd and every bias gradient
-    equal the fused scalar kernel's (the same tile code) and dW is within the
-    bf16 tolerance of the plain version; the row-local pass's workspace is
-    within it of the plain row-local pass's; the GEMM is within 1e-4 of
-    field_dw_plain on the producer's own workspace, and bit-equal from one
-    call to the next."""
+    """The split bf16 K2-bwd with the scalar row-local pass (the "split"
+    variant): dx, dd and every bias gradient equal the fused scalar kernel's
+    (the same tile code) and dW is within the bf16 tolerance of the plain
+    version; the row-local pass's workspace is within it of the plain
+    row-local pass's; the GEMM is within 1e-4 of field_dw_plain on the
+    producer's own workspace, and bit-equal from one call to the next."""
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
     cd = torch.bfloat16
@@ -126,10 +128,10 @@ def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
         scd, sf32 = (r.contiguous() for r in K._pack_res(res))
         rgb, grads = out[2].contiguous(), out[1].contiguous()
         args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
-        deff, dx, dd = K.field_bwd_stash_kernel(*args, cd)
+        deff, dx, dd = K.field_bwd_stash_kernel_variant(*args, cd, "split")
         deff_s, dx_s, dd_s = K.field_bwd_stash_kernel_variant(*args, cd, "scalar")
         deff_p, dx_p, dd_p = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
-        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args)
+        _, _, _, ws = K.field_bwd_rowlocal_kernel(*args, variant="split")
         ws_p = K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd)[0]
         dws = [torch.zeros(F._n_param_grads(), device="cuda") for _ in range(2)]
         for g in dws:
@@ -149,8 +151,78 @@ def test_split_k2_backward_matches_scalar_and_plain(setup, n_points):
         assert _err(a, b) < 1e-4
 
 
+@pytest.mark.parametrize("n_points", [1, 63, 65, 1000])  # ragged against the 64-point tile
+def test_mma_row_local_pass_matches_split_and_plain(setup, n_points):
+    """The tensor-core row-local pass ("mma"): its workspace within the bf16
+    tolerance of the plain row-local pass's (padded points zero), its dx, dd
+    and bias gradients within it of the scalar pass's ("split"), and K2-bwd
+    with it (the GEMM on its workspace) within it of the plain version."""
+    cfg, model = setup
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    cd = torch.bfloat16
+    x, d, cots = _field_inputs(n_points, seed=1000 + n_points)
+    with torch.no_grad():
+        flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+        out, res = K.field_fwd_res(flat, x, d, icfg, rcfg, cd)
+        scd, sf32 = (r.contiguous() for r in K._pack_res(res))
+        rgb, grads = out[2].contiguous(), out[1].contiguous()
+        args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
+        dp_m, dx_m, dd_m, ws_m = K.field_bwd_rowlocal_kernel(*args, variant="mma")
+        dp_s, dx_s, dd_s, _ = K.field_bwd_rowlocal_kernel(*args, variant="split")
+        ws_p = K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd)[0]
+        deff, dx, dd = K.field_bwd_stash_kernel(*args, cd)
+        deff_p, dx_p, dd_p = K.field_bwd_stashed(flat, x, d, res, cots, icfg, rcfg, cd)
+    ops, ops_p = DW.unpack_workspace(ws_m, n_points), DW.unpack_workspace(ws_p, n_points)
+    for key in ops_p:
+        assert _err(ops[key], ops_p[key]) < TOL[cd], key
+    assert not ws_m[:, n_points:].any()
+    assert _err(dx_m, dx_s) < TOL[cd] and _err(dd_m, dd_s) < TOL[cd]
+    for a, b in zip(K._split_param_grads(dp_m, flat)[1::2], K._split_param_grads(dp_s, flat)[1::2]):
+        assert _err(a, b) < TOL[cd]
+    for a, b in zip((*deff, dx, dd), (*deff_p, dx_p, dd_p)):
+        assert _err(a, b) < TOL[cd]
+
+
+def test_mma_row_local_pass_past_2_31_workspace_elements(setup):
+    """At 2^31 // WS_ROWS + 1000 points (168,093) the workspace holds more
+    than 2^31 elements, so its last rows lie past a 32-bit offset: the
+    tensor-core row-local pass (on K2-fwd's stash) writes every operand
+    within the bf16 tolerance of the scalar pass's ("split"), and its dx, dd
+    and bias gradients, and the model's K2-bwd with it, agree with the
+    "split" ones as closely."""
+    cfg, model = setup
+    icfg, cd = cfg.implicit, torch.bfloat16
+    n_points = 2**31 // DW.WS_ROWS + 1000
+    assert DW.WS_ROWS * DW.ws_points(n_points) > 2**31
+    x, d, cots = _field_inputs(n_points, seed=7)
+    flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+    with torch.no_grad():
+        sdf, grads, rgb, att, scd, sf32 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
+        args = (flat, x, d, scd, sf32, rgb, grads, cots, icfg)
+        dp_m, dx_m, dd_m, ws_m = K.field_bwd_rowlocal_kernel(*args)
+        dp_s, dx_s, dd_s, ws_s = K.field_bwd_rowlocal_kernel(*args, variant="split")
+        ops, ops_s = DW.unpack_workspace(ws_m, n_points), DW.unpack_workspace(ws_s, n_points)
+        for key in ops_s:
+            assert _err(ops[key], ops_s[key]) < TOL[cd], key
+        assert not ws_m[:, n_points:].any()
+        del ops, ops_s, ws_m, ws_s
+        assert _err(dx_m, dx_s) < TOL[cd] and _err(dd_m, dd_s) < TOL[cd]
+        for a, b in zip(K._split_param_grads(dp_m, flat)[1::2], K._split_param_grads(dp_s, flat)[1::2]):
+            assert _err(a, b) < TOL[cd]
+        got = K.field_bwd_stash_kernel(*args, cd)
+        want = K.field_bwd_stash_kernel_variant(*args, cd, "split")
+    for a, b in zip((*got[0], got[1], got[2]), (*want[0], want[1], want[2])):
+        assert _err(a, b) < TOL[cd]
+
+
 @pytest.mark.parametrize("cd", DTYPES)
 def test_k3_kernels_match_plain_and_k2(setup, cd):
+    """K3 against the K2 pair on the same inputs. f32: K3-bwd, the scalar
+    kernel, equals K2-fwd + K2-bwd (one tile body) within 1e-6. bf16: K3-bwd,
+    the split backward over chunks, equals the model's K2 (K2-fwd, then the
+    split K2-bwd on its stash) in dx and dd exactly and in the gradients
+    within 1e-4 (the same products, summed in chunks); its "scalar" variant
+    equals the scalar K2 pair within 1e-6."""
     cfg, model = setup
     icfg, rcfg = cfg.implicit, cfg.rendering
     x, d, cots = _field_inputs(1000, seed=0)
@@ -160,24 +232,71 @@ def test_k3_kernels_match_plain_and_k2(setup, cd):
         ref = F.field_math(flat, x, d, icfg, rcfg, cd)
         k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
         deff, dx, dd = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
-        # K3-bwd re-runs the scalar forward tile and the fused scalar backward
-        # tile: the fused scalar K2-bwd replays the scalar K2-fwd's stash
+        deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
         if cd == torch.bfloat16:
+            # the scalar K3-bwd re-runs the scalar forward tile and the fused
+            # scalar backward tile: the fused scalar K2-bwd replays the scalar
+            # K2-fwd's stash
             k2s = K.field_fwd_stash_kernel_variant(flat, x, d, icfg, cd, "scalar")
-            deff2, dx2, dd2 = K.field_bwd_stash_kernel_variant(
+            scalar2 = K.field_bwd_stash_kernel_variant(
                 flat, x, d, k2s[4], k2s[5], k2s[2], k2s[1], cots, icfg, cd, "scalar")
-        else:
-            deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
+            scalar3 = F.field_bwd_kernel_variant(flat, x, d, cots, icfg, cd, "scalar")
     fwd_tol = 1e-5 if cd == torch.float32 else 3e-2
     for a, b, c in zip(got, ref, k2):
         assert _err(a, b) < fwd_tol and _err(a, c) <= 1e-6
-    for a, b in zip((*deff, dx, dd), (*deff2, dx2, dd2)):
-        assert _err(a, b) <= 1e-6
+    if cd == torch.bfloat16:
+        assert torch.equal(dx, dx2) and torch.equal(dd, dd2)
+        for a, b in zip(deff, deff2):
+            assert _err(a, b) <= 1e-4
+        for a, b in zip((*scalar3[0], scalar3[1], scalar3[2]), (*scalar2[0], scalar2[1], scalar2[2])):
+            assert _err(a, b) <= 1e-6
+    else:
+        for a, b in zip((*deff, dx, dd), (*deff2, dx2, dd2)):
+            assert _err(a, b) <= 1e-6
     leaves = [w.clone().requires_grad_(True) for w in (*flat, x, d)]
     plain = torch.autograd.grad(F.field_math(leaves[:-2], leaves[-2], leaves[-1], icfg, rcfg, cd), leaves, cots)
     l2_tol = 5e-3 if cd == torch.float32 else 0.15
     for a, b in zip((*deff, dx, dd), plain):
         assert float((a - b).norm()) <= l2_tol * float(b.norm())
+
+
+@pytest.mark.parametrize("n_points", [129, F.RECOMPUTE_CHUNK + 1, 40_000])  # one, two and three chunks
+def test_split_k3_backward_matches_the_models_k2_over_chunks(setup, n_points):
+    """The bf16 K3-bwd over one or more chunks (the last of one point, or
+    ragged): dx and dd equal the model's K2-fwd + split K2-bwd exactly, the
+    gradients within 1e-4; the forward its chunks recompute equals K2-fwd's;
+    each chunk launches the forward, the row-local pass and the GEMM once."""
+    cfg, model = setup
+    icfg, cd = cfg.implicit, torch.bfloat16
+    x, d, cots = _field_inputs(n_points, seed=n_points)
+    flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+    chunk_fns = (F.field_bwd_chunk_fwd, F.field_bwd_chunk_rowlocal, F.field_bwd_chunk_dw)
+    seen, inner = [], F.field_bwd_chunk_fwd
+
+    def record(*args):
+        out = inner(*args)
+        seen.append(out[:4])
+        return out
+
+    record.launches = 0  # the wrapper counts on its module-level name
+    with torch.no_grad():
+        k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
+        deff2, dx2, dd2 = K.field_bwd_stash_kernel(flat, x, d, k2[4], k2[5], k2[2], k2[1], cots, icfg, cd)
+        before = [f.launches for f in chunk_fns]
+        F.field_bwd_chunk_fwd = record
+        try:
+            deff, dx, dd = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
+        finally:
+            F.field_bwd_chunk_fwd = inner
+    chunks = len(F.recompute_chunks(n_points))
+    assert record.launches == chunks
+    assert [f.launches - b for f, b in zip(chunk_fns[1:], before[1:])] == [chunks, chunks]
+    assert len(seen) == chunks
+    for a, b in zip((torch.cat(ts) for ts in zip(*seen)), k2[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(dx, dx2) and torch.equal(dd, dd2)
+    for a, b in zip(deff, deff2):
+        assert _err(a, b) <= 1e-4
 
 
 def _l2(a, b):
@@ -299,7 +418,8 @@ def test_k4_kernel_matches_plain(setup, refine):
     "kwargs,expected",
     [
         (dict(), dict(sdf=5, fwd_stash=1, bwd_stash=1, rowlocal=1, dw=1)),
-        (dict(field="recompute"), dict(sdf=5, fwd=1, bwd=1)),
+        # 128 rays x 98 samples: one chunk of K3-bwd
+        (dict(field="recompute"), dict(sdf=5, fwd=1, bwd=1, chunk_fwd=1, chunk_rowlocal=1, chunk_dw=1)),
         (dict(fused_rounds="on"), dict(round=5, sdf=5, fwd_stash=1, bwd_stash=1, rowlocal=1, dw=1)),
     ],
 )
@@ -311,7 +431,9 @@ def test_training_step_launches_its_kernels(setup, kwargs, expected):
     step, state = bench_step(cfg, device="cuda", n_rays=128)
     fns = dict(sdf=fused_sdf_kernel, fwd_stash=K.field_fwd_stash_kernel, bwd_stash=K.field_bwd_stash_kernel,
                rowlocal=K.field_bwd_rowlocal_kernel, dw=DW.field_dw_kernel,
-               fwd=F.field_fwd_kernel, bwd=F.field_bwd_kernel, round=R.fused_round_kernel)
+               fwd=F.field_fwd_kernel, bwd=F.field_bwd_kernel, chunk_fwd=F.field_bwd_chunk_fwd,
+               chunk_rowlocal=F.field_bwd_chunk_rowlocal, chunk_dw=F.field_bwd_chunk_dw,
+               round=R.fused_round_kernel)
     before = {k: f.launches for k, f in fns.items()}
     state, metrics = step(state, scene, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()

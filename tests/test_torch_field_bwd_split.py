@@ -254,7 +254,7 @@ def _calls():
         "bwd_cpu": (ValueError, lambda: K.field_bwd_stash_kernel(*args, bf)),
         "split_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "split")),
         "scalar_cpu": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "scalar")),
-        "mma_unknown": (ValueError, lambda: K.field_bwd_stash_kernel_variant(*args, bf, "mma")),
+        "mma_cpu": (ValueError, lambda: K.field_bwd_rowlocal_kernel(*args, variant="mma")),
         "rowlocal_cpu": (ValueError, lambda: K.field_bwd_rowlocal_kernel(*args)),
         "split_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "split")),
         "scalar_f32": (TypeError, lambda: K.field_bwd_stash_kernel_variant(*args, f32, "scalar")),
