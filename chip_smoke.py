@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only k3 # the same for K3-fwd (+ the scalar K3)
     python3 chip_smoke.py --only k2b # build field_bwd_mma.cu, field_dw_mma.cu, fused_field_stash.cu; the split K2-bwd's checks and timings
     python3 chip_smoke.py --only k3b # build K3-bwd's sources (+ the scalar K3); the bf16 K3-bwd's checks and timings
+    python3 chip_smoke.py --only runner # build the main path's sources; the runner phase (7. below) alone
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -65,6 +66,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 6. one step of each of the three kernel paths against the plain PyTorch path
    from the same weights, batch and noise, and the sampler's z values with
    and without K4 on the same noise.
+7. the training CLI, neat_tpu_torch.train.runner.main, in this process:
+   the port's generate_scene writes an ABC-layout scene (abc/00075213,
+   512 x 512, 8 views) under build/chip_smoke/runner; abc-neat-a trains on
+   it with --nepoch 1 (2 epochs x 8 steps) and again with --is_continue
+   --nepoch 2. Every step's loss must be finite and every step must launch
+   exactly the main path's kernels (K1 x5, K2-fwd, the row-local pass, the
+   GEMM); train.log must hold one line per epoch; checkpoints/{0,1,latest}
+   and their ModelParameters exports must exist; the resumed runner's state
+   just after its checkpoint load must equal the saved one bit for bit;
+   every packed view must have support pixels. It prints the scene's
+   generation and load seconds, the native encodels build and run time,
+   and the median ms/step and rays/s of the steps after each run's first.
 
 It prints ms/step and rays/s, the card line and one ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``. Details go to
@@ -1438,6 +1451,154 @@ def eval_forward(n_rays):
     return rec
 
 
+# the runner phase: the training CLI on a scene generated on disk, at the
+# resolution of confs/abc-neat-a.conf
+RUNNER_CONF = os.path.join("confs", "abc-neat-a.conf")
+RUNNER_SCENE, RUNNER_VIEWS = os.path.join("abc", "00075213"), 8
+
+
+def _same_state(a, b) -> bool:
+    """Two host train states (checkpoint payloads) equal bit for bit."""
+    if a["step"] != b["step"]:
+        return False
+    for part in ("params", "mu", "nu"):
+        if set(a[part]) != set(b[part]):
+            return False
+        for k, v in a[part].items():
+            w = b[part][k]
+            if v.dtype != w.dtype or v.shape != w.shape or v.tobytes() != w.tobytes():
+                return False
+    return True
+
+
+def runner_phase(profile_path=None):
+    """neat_tpu_torch.train.runner.main in this process on a scene that the
+    port's generate_scene writes into build/chip_smoke/runner: abc-neat-a at
+    full width, --nepoch 1 (epochs 0 and 1: 2 x 8 steps), then resumed with
+    --is_continue --nepoch 2. Each step's loss must be finite and each step
+    must launch exactly the main path's kernels; train.log holds one epoch
+    line per epoch; the checkpoints and the ModelParameters exports exist;
+    the resumed runner's state just after it loaded the checkpoint equals
+    the saved state bit for bit; every view of the packed scene has support
+    pixels. With ``profile_path``, also profile_calls of 3 more runner steps
+    on the same scene."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from neat_tpu_torch.data.datasets import load_scene_for_config
+    from neat_tpu_torch.data.encodels import build_native, encode_line_attraction
+    from neat_tpu_torch.data.synthetic import generate_scene
+    from neat_tpu_torch.train import runner as R
+    from neat_tpu_torch.train.checkpoint import host_state, jax_key, load_checkpoint
+    from neat_tpu_torch.train.config import load_experiment_config
+
+    work = os.path.join(OUT_DIR, "runner")
+    shutil.rmtree(work, ignore_errors=True)
+    data_root, exps = os.path.join(work, "data"), os.path.join(work, "exps")
+    conf = os.path.join(REPO, RUNNER_CONF)
+    cfg = load_experiment_config(conf)
+    require(cfg.data_dir == RUNNER_SCENE, f"runner: {RUNNER_CONF} names {cfg.data_dir}, not {RUNNER_SCENE}")
+    rec = {"res": list(cfg.img_res), "views": RUNNER_VIEWS}
+    t0 = time.perf_counter()
+    generate_scene(os.path.join(data_root, RUNNER_SCENE), n_views=RUNNER_VIEWS, res=tuple(cfg.img_res), seed=0)
+    rec["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_native()
+    rec["encodels_build_s"] = time.perf_counter() - t0
+
+    fns = counters()
+    expected = {k: PATHS["main"][1].get(k, 0) for k in fns}
+    runs = []
+    orig_run = R.TrainRunner.run
+
+    def run(self):
+        """Record the state just after __init__ (and its checkpoint load),
+        then count, time and check every step."""
+        r = {"rundir": self.rundir, "start_epoch": self.start_epoch, "load_s": self.load_seconds,
+             "n_views": self.n_views, "support": [int(c) for c in self.scene.mask.sum(axis=1)],
+             "state": host_state(self.state), "steps": []}
+        runs.append(r)
+        step_fn = self.step_fn
+
+        def counted(state, scene, gen):
+            before = {k: f.launches for k, f in fns.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, aux = step_fn(state, scene, gen)
+            loss = float(aux["loss"])
+            r["steps"].append({"ms": (time.perf_counter() - t) * 1e3, "loss": loss,
+                               "launches": {k: f.launches - before[k] for k, f in fns.items()}})
+            require(math.isfinite(loss), f"runner: non-finite loss {loss} at step {state.step}")
+            require(r["steps"][-1]["launches"] == expected,
+                    f"runner: a step launched {r['steps'][-1]['launches']}, expected {expected}")
+            return state, aux
+
+        self.step_fn = counted
+        return orig_run(self)
+
+    args = ["--conf", conf, "--data_root", data_root, "--exps_folder", exps]
+    R.TrainRunner.run = run
+    try:
+        for f in fns.values():
+            f.launches = 0
+        R.main(args + ["--nepoch", "1"])
+        R.main(args + ["--nepoch", "2", "--is_continue"])
+    finally:
+        R.TrainRunner.run = orig_run
+    first, resumed = runs
+    for r, epochs in ((first, (0, 1)), (resumed, (1, 2))):
+        require(r["n_views"] == RUNNER_VIEWS, f"runner: {r['n_views']} views packed, expected {RUNNER_VIEWS}")
+        require(min(r["support"]) > 0, f"runner: a view has no support pixels: {r['support']}")
+        require(len(r["steps"]) == len(epochs) * RUNNER_VIEWS, f"runner: {len(r['steps'])} steps")
+        with open(os.path.join(r["rundir"], "train.log")) as f:
+            lines = [l for l in f if "rays/s)" in l]
+        require([l.split("[")[1].split("/")[0] for l in lines] == [str(e) for e in epochs],
+                 f"runner: train.log epoch lines {lines}")
+        for sub in ("runconf.conf", *(f"junctions/{e}.npy" for e in epochs)):
+            require(os.path.exists(os.path.join(r["rundir"], sub)), f"runner: no {sub}")
+    ckpt = os.path.join(first["rundir"], "checkpoints")
+    for tag in ("0", "1", "latest"):
+        for sub in (f"{tag}.ckpt", f"ModelParameters/{tag}.npz"):
+            require(os.path.exists(os.path.join(ckpt, sub)), f"runner: no checkpoints/{sub}")
+    saved, epoch = load_checkpoint(ckpt, "latest")
+    require(resumed["start_epoch"] == epoch == 1, f"runner: resumed at epoch {resumed['start_epoch']}, saved {epoch}")
+    require(saved["step"] == 2 * RUNNER_VIEWS, f"runner: saved step {saved['step']}")
+    require(_same_state(resumed["state"], saved), "runner: the resumed state differs from the saved one")
+    with np.load(os.path.join(ckpt, "ModelParameters", "latest.npz")) as z:
+        export = {k: z[k] for k in z.files}
+    require(export.keys() == {jax_key(k) for k in saved["params"]}
+            and all(np.array_equal(export[jax_key(k)], v) for k, v in saved["params"].items()),
+            "runner: the ModelParameters export differs from the checkpoint's params")
+
+    # the native encodels alone on this scene's lines, per view
+    scene = load_scene_for_config(cfg, data_root)
+    t0 = time.perf_counter()
+    for v in range(scene.n_images):
+        encode_line_attraction(scene.lines[v, : scene.n_lines[v]], *scene.img_res, backend="native")
+    rec["encodels_run_s"] = time.perf_counter() - t0
+    steps = first["steps"] + resumed["steps"]
+    ms = [s["ms"] for s in first["steps"][1:] + resumed["steps"][1:]]
+    q1, med, q3 = statistics.quantiles(ms, n=4)
+    if profile_path:
+        from neat_tpu_torch.train.step import step_generator
+
+        r = R.TrainRunner(conf=conf, data_root=data_root, exps_folder=exps, nepochs=3, is_continue=True)
+
+        def one():
+            r.state, _ = r.step_fn(r.state, r.scene_dev, step_generator(0, 0, r.state.step, r.device))
+
+        one()  # warm-up outside the window
+        rec["profile"] = profile_calls("runner", one, 3, profile_path)
+        r.close()
+    rec.update(load_s=[first["load_s"], resumed["load_s"]], support=first["support"],
+               losses=[s["loss"] for s in steps], median_ms=med, q1_ms=q1, q3_ms=q3, n_timed=len(ms),
+               rays_per_sec=cfg.num_pixels / (med / 1e3),
+               launches_per_step=steps[0]["launches"], step_ms=[s["ms"] for s in steps])
+    return rec
+
+
 # ---------------------------------------------------------------------------
 
 # --only <kernel>: the one library that kernel lives in
@@ -1445,7 +1606,26 @@ def eval_forward(n_rays):
 # own and the scalar kernel it is held against)
 ONLY = {"k1": ("fused_sdf",), "k2": ("field_fwd_mma", "fused_field_stash"),
         "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash", "field_bwd_mma"),
-        "k3b": ("field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field")}
+        "k3b": ("field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field"),
+        "runner": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma")}
+
+
+def print_runner(r, card: str) -> None:
+    print(f"runner scene: {r['views']} views of {r['res'][0]} x {r['res'][1]} generated in {r['generate_s']:.2f} s, "
+          f"loaded in {r['load_s'][0]:.3f} s (resumed run {r['load_s'][1]:.3f} s); encodels native build "
+          f"{r['encodels_build_s']:.2f} s, run {r['encodels_run_s']:.3f} s over {r['views']} views; support "
+          f"pixels per view {r['support']}", flush=True)
+    print(f"runner: {len(r['losses'])} steps, losses {r['losses'][0]:.4f} .. {r['losses'][-1]:.4f}, launches per step "
+          f"{ {k: v for k, v in r['launches_per_step'].items() if v} }; median {r['median_ms']:.2f} ms/step "
+          f"(quartiles {r['q1_ms']:.2f} .. {r['q3_ms']:.2f}) over the {r['n_timed']} steps after each run's "
+          f"first, {r['rays_per_sec']:.1f} rays/s; {card}", flush=True)
+    if "profile" in r:
+        prof = r["profile"]
+        print(f"profile runner: wall {prof['wall_ms_per_step']:.2f} ms/step, device busy "
+              f"{prof['device_busy_ms_per_step']:.2f} ms/step in {prof['launches_per_step']:.0f} launches/step, "
+              f"idle share {prof['idle_share']:.3f}", flush=True)
+        for ms, cnt, key in prof["top"][:6]:
+            print(f"  {ms:9.3f} ms/step {cnt:7.1f}x  {key[:100]}", flush=True)
 
 
 def main() -> int:
@@ -1454,7 +1634,7 @@ def main() -> int:
     ap.add_argument("--only", choices=tuple(ONLY), default=None,
                     help="build one library and run its kernel's checks and timings alone")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 3 steps of each path with torch.profiler "
+                    help="also trace 3 steps of each path and of the runner with torch.profiler "
                          "(build/chip_smoke/profile_<path>.txt)")
     ap.add_argument("--turns", type=int, default=0, metavar="N",
                     help="also time N steps of each path, the paths taken in turns")
@@ -1503,6 +1683,9 @@ def main() -> int:
             report["k2b"] = k2b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k2b"]:
                 print_k2b(r)
+        elif args.only == "runner":
+            report["runner"] = runner_phase(os.path.join(OUT_DIR, "profile_runner.txt") if args.profile else None)
+            print_runner(report["runner"], card)
         elif args.only == "k3b":
             report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k3b"]:
@@ -1614,6 +1797,8 @@ def main() -> int:
                 f"{name} {paths[name][key]:.6g}" for name in (*PATHS, "plain")), flush=True)
         print(f"z values with K4 against without: median |diff| {paths['z_median_diff']:.3g}, "
               f"mean {paths['z_mean_diff']:.3g}; plain step ms {paths['plain_step_ms']}", flush=True)
+        report["runner"] = runner_phase(os.path.join(OUT_DIR, "profile_runner.txt") if args.profile else None)
+        print_runner(report["runner"], card)
         t1, t3, t4 = k1[0], k3[-1], k4[-1]
         src = "neat_tpu_torch/csrc/"
         kernels = [

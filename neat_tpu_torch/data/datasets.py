@@ -1,0 +1,335 @@
+"""Scene loading for the ABC (blender) convention (port of the blender parts
+of neat_tpu/data/datasets.py, numpy only).
+
+A whole scene is packed into fixed-shape arrays (views x pixels) that
+``train/step.py:scene_to_device`` moves to the device once; each step then
+draws its rays there. A view's support-region pixel ids are padded to a
+common length by wrapping, for uniform draws with replacement. Every packed
+array equals the JAX package's bit for bit (tests/test_torch_data.py).
+
+Ported kinds: ``blender``/``abc`` (cameras.npz{intrinsics, extrinsics}
+with cam2world extrinsics, hawp/*.json wireframes) and ``blender_plain``
+(no wireframes, every pixel trainable). The DTU, ScanNet and scene_line
+kinds raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import os.path as osp
+import warnings
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from .encodels import attraction_support
+from .png import read_png
+from .wireframe import WireframeGraph
+
+
+def _load_rgb(path: str) -> np.ndarray:
+    """Image as float32 [0, 1], (H, W, 3): 8-bit samples / 255, 16-bit ones
+    / 65535, gray repeated to three channels, alpha dropped. Only PNG is
+    read; any other file raises."""
+    if not path.lower().endswith(".png"):
+        raise NotImplementedError(f"{path}: only PNG images are read")
+    img = read_png(path)
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    else:
+        img = img.astype(np.float32) / 65535.0
+    if img.ndim == 2:
+        img = np.stack([img] * 3, axis=-1)
+    if img.shape[-1] == 4:
+        img = img[..., :3]
+    return img
+
+
+def _glob_imgs(path: str) -> List[str]:
+    imgs = []
+    for ext in ("*.png", "*.jpg", "*.JPEG", "*.JPG", "*.bmp", "*.npy"):
+        imgs.extend(glob.glob(osp.join(path, ext)))
+    return sorted(imgs)
+
+
+@dataclasses.dataclass
+class SceneData:
+    """A whole scene packed into fixed-shape numpy arrays.
+
+    All per-pixel arrays are flattened row-major over (H, W); pixel index
+    i corresponds to uv = (i % W, i // W) in (x, y) coordinates.
+    """
+
+    rgb: np.ndarray  # (V, H*W, 3) float32
+    intrinsics: np.ndarray  # (V, 4, 4) float32
+    pose: np.ndarray  # (V, 4, 4) float32 cam2world
+    img_res: Tuple[int, int]  # (H, W)
+    scale_mat: np.ndarray  # (4, 4)
+
+    # wireframe supervision (None when with_wireframes=False)
+    mask: Optional[np.ndarray] = None  # (V, H*W) bool
+    labels: Optional[np.ndarray] = None  # (V, H*W) int32
+    uv_proj: Optional[np.ndarray] = None  # (V, H*W, 2) float32
+    lines: Optional[np.ndarray] = None  # (V, L_max, 5) float32 padded
+    n_lines: Optional[np.ndarray] = None  # (V,) int32
+    # the low-threshold (0.01) line set finalization matches against;
+    # training supervises with 0.05
+    lines_lo: Optional[np.ndarray] = None  # (V, L_lo_max, 5) float32 padded
+    n_lines_lo: Optional[np.ndarray] = None  # (V,) int32
+    verts2d: Optional[np.ndarray] = None  # (V, V_max, 2) float32 padded
+    verts_mask: Optional[np.ndarray] = None  # (V, V_max) bool
+    support_idx: Optional[np.ndarray] = None  # (V, S_max) int32
+    support_count: Optional[np.ndarray] = None  # (V,) int32
+
+    # depth cues: only the DTU-family loaders, not ported, fill it
+    depth: Optional[np.ndarray] = None  # (V, H*W) float32
+
+    view_ids: Optional[np.ndarray] = None  # original image indices kept
+
+    @property
+    def n_images(self) -> int:
+        return self.rgb.shape[0]
+
+    @property
+    def total_pixels(self) -> int:
+        return self.img_res[0] * self.img_res[1]
+
+
+def _pack_lines(lines_list: List[np.ndarray]):
+    """Pad a per-view list of (L_i, 5) line arrays to (V, L_max, 5)."""
+    v = len(lines_list)
+    l_max = max(max(ln.shape[0] for ln in lines_list), 1)
+    out = np.zeros((v, l_max, 5), dtype=np.float32)
+    counts = np.zeros((v,), dtype=np.int32)
+    for i, ln in enumerate(lines_list):
+        out[i, : ln.shape[0]] = ln
+        counts[i] = ln.shape[0]
+    return out, counts
+
+
+def _pack_wireframes(
+    wireframes: List[WireframeGraph],
+    lines_list: List[np.ndarray],
+    img_res: Tuple[int, int],
+    distance_threshold: float,
+    max_verts: Optional[int] = None,
+    backend: str = "native",
+):
+    h, w = img_res
+    v = len(wireframes)
+    l_max = max(ln.shape[0] for ln in lines_list)
+    v_max = max_verts or max(wf.num_vertices for wf in wireframes)
+
+    lines = np.zeros((v, l_max, 5), dtype=np.float32)
+    n_lines = np.zeros((v,), dtype=np.int32)
+    verts2d = np.zeros((v, v_max, 2), dtype=np.float32)
+    verts_mask = np.zeros((v, v_max), dtype=bool)
+    masks = np.zeros((v, h * w), dtype=bool)
+    labels = np.zeros((v, h * w), dtype=np.int32)
+    uv_proj = np.zeros((v, h * w, 2), dtype=np.float32)
+
+    for i, (wf, ln) in enumerate(zip(wireframes, lines_list)):
+        n = ln.shape[0]
+        lines[i, :n] = ln
+        n_lines[i] = n
+        if wf.num_vertices > v_max:
+            warnings.warn(
+                f"view {i}: {wf.num_vertices} wireframe vertices exceed "
+                f"max_verts={v_max}; extra junction supervision is dropped "
+                "(raise max_verts)"
+            )
+        nv = min(wf.num_vertices, v_max)
+        verts2d[i, :nv] = wf.vertices[:nv]
+        verts_mask[i, :nv] = True
+        m, lab, proj = attraction_support(
+            ln, h, w, distance_threshold=distance_threshold, backend=backend
+        )
+        masks[i] = m
+        labels[i] = lab
+        uv_proj[i] = proj
+
+    # padded support-index table for device-side sampling
+    counts = masks.sum(axis=1).astype(np.int32)
+    s_max = int(max(counts.max(), 1))
+    support_idx = np.zeros((v, s_max), dtype=np.int32)
+    for i in range(v):
+        idx = np.nonzero(masks[i])[0].astype(np.int32)
+        if len(idx) == 0:
+            idx = np.asarray([0], dtype=np.int32)
+            counts[i] = 1
+        support_idx[i, : len(idx)] = idx
+        # pad by wrapping so any index read is valid
+        if len(idx) < s_max:
+            reps = -(-s_max // len(idx))
+            support_idx[i] = np.tile(idx, reps)[:s_max]
+    return lines, n_lines, verts2d, verts_mask, masks, labels, uv_proj, support_idx, counts
+
+
+def load_blender_scene(
+    data_dir: str,
+    img_res: Tuple[int, int],
+    data_root: str = "../data",
+    reverse_coordinate: bool = False,  # accepted for conf parity; no-op
+    line_detector: str = "hawp",
+    distance_threshold: float = 10.0,
+    score_threshold: float = 0.05,
+    with_wireframes: bool = True,
+    max_verts: Optional[int] = None,
+    encodels_backend: str = "native",
+) -> SceneData:
+    """ABC-style scene: cameras.npz{intrinsics, extrinsics} + hawp json.
+    Views whose wireframe has no vertex, no edge or no line above
+    ``score_threshold`` are dropped."""
+    del reverse_coordinate
+    instance_dir = osp.join(data_root, data_dir)
+    if not osp.exists(instance_dir):
+        raise FileNotFoundError(f"Data directory {instance_dir} is empty")
+
+    image_paths = [p for p in _glob_imgs(osp.join(instance_dir, "images")) if "mask" not in p]
+    cam = np.load(osp.join(instance_dir, "cameras.npz"))
+    intr_all = cam["intrinsics"].astype(np.float32)
+    pose_all = cam["extrinsics"].astype(np.float32)
+
+    rgbs, wireframes, lines_list, valid_ids = [], [], [], []
+    for i, path in enumerate(image_paths):
+        if with_wireframes:
+            hawp_path = osp.join(
+                instance_dir,
+                line_detector,
+                osp.splitext(osp.basename(path))[0] + ".json",
+            )
+            wf = WireframeGraph.load_json(hawp_path)
+            if wf.num_vertices == 0 or wf.num_edges == 0:
+                continue
+            ln = wf.line_segments(score_threshold)
+            if ln.shape[0] == 0:
+                continue
+            if (wf.frame_height, wf.frame_width) != tuple(img_res):
+                raise ValueError(
+                    f"{hawp_path}: wireframe frame {wf.frame_height} x {wf.frame_width}, conf img_res {img_res}"
+                )
+            wireframes.append(wf)
+            lines_list.append(ln)
+        img = _load_rgb(path)
+        if img.shape[:2] != tuple(img_res):
+            raise ValueError(f"{path}: image {img.shape} vs conf img_res {img_res}")
+        rgbs.append(img.reshape(-1, 3))
+        valid_ids.append(i)
+
+    intr4 = np.tile(np.eye(4, dtype=np.float32), (len(valid_ids), 1, 1))
+    intr4[:, :3, :3] = intr_all[valid_ids][:, :3, :3]
+
+    scene = SceneData(
+        rgb=np.stack(rgbs),
+        intrinsics=intr4,
+        pose=pose_all[valid_ids],
+        img_res=tuple(img_res),
+        scale_mat=np.eye(4, dtype=np.float32),
+        view_ids=np.asarray(valid_ids, dtype=np.int32),
+    )
+    if with_wireframes:
+        (
+            scene.lines,
+            scene.n_lines,
+            scene.verts2d,
+            scene.verts_mask,
+            scene.mask,
+            scene.labels,
+            scene.uv_proj,
+            scene.support_idx,
+            scene.support_count,
+        ) = _pack_wireframes(
+            wireframes, lines_list, tuple(img_res), distance_threshold,
+            max_verts, encodels_backend,
+        )
+        scene.lines_lo, scene.n_lines_lo = _pack_lines(
+            [wf.line_segments(0.01) for wf in wireframes]
+        )
+    return scene
+
+
+_LOADERS = {"blender": load_blender_scene, "abc": load_blender_scene}
+# kinds of the JAX package that are not ported yet -> their ROADMAP.md §1 item
+_UNPORTED = {"dtu": "DTU path", "scene": "DTU path", "dtu_plain": "DTU path", "scannet": "data",
+             "scene_line": "data"}
+
+
+def _check_ported(kind: str) -> None:
+    if kind in _UNPORTED:
+        raise NotImplementedError(
+            f"scene kind {kind!r} is not ported yet (ROADMAP.md §1, {_UNPORTED[kind]}); "
+            "blender, abc and blender_plain load"
+        )
+
+
+def load_scene(kind: str, **kwargs) -> SceneData:
+    """Dispatch by convention name: 'blender'/'abc'. The JAX package's
+    'dtu'/'scene', 'scannet' and 'scene_line' raise ``NotImplementedError``."""
+    _check_ported(kind)
+    return _LOADERS[kind](**kwargs)
+
+
+def _uniform_support(scene: SceneData) -> SceneData:
+    """Replace the attraction-support sampling tables with full pixel
+    coverage: training pixels drawn uniformly over the whole image."""
+    v, hw = scene.n_images, scene.total_pixels
+    return dataclasses.replace(
+        scene,
+        support_idx=np.tile(np.arange(hw, dtype=np.int32), (v, 1)),
+        support_count=np.full((v,), hw, dtype=np.int32),
+    )
+
+
+def _plain_trainable(scene: SceneData) -> SceneData:
+    """Make a wireframe-less scene trainable: full-coverage uniform pixel
+    sampling plus inert wireframe tables (zero-score lines gate the line
+    loss off; an empty verts mask empties the junction assignment), so the
+    step's input set is the same as with wireframes."""
+    v, hw = scene.n_images, scene.total_pixels
+    h, w = scene.img_res
+    uv = np.stack(
+        [np.arange(hw, dtype=np.float32) % w,
+         np.arange(hw, dtype=np.float32) // w], axis=-1
+    )
+    return dataclasses.replace(
+        _uniform_support(scene),
+        mask=np.ones((v, hw), dtype=bool),
+        labels=np.zeros((v, hw), dtype=np.int32),
+        uv_proj=np.tile(uv[None], (v, 1, 1)),
+        lines=np.zeros((v, 1, 5), dtype=np.float32),
+        n_lines=np.zeros((v,), dtype=np.int32),
+        verts2d=np.zeros((v, 1, 2), dtype=np.float32),
+        verts_mask=np.zeros((v, 1), dtype=bool),
+    )
+
+
+def load_scene_for_config(
+    cfg,
+    data_root: str,
+    distance_threshold: Optional[float] = None,
+    with_wireframes: Optional[bool] = None,
+) -> SceneData:
+    """Build the scene an ExperimentConfig describes. ``distance_threshold``
+    overrides the conf value. Kinds ``blender`` and ``blender_plain`` load;
+    the others raise ``NotImplementedError``."""
+    kind = cfg.dataset_kind
+    _check_ported(kind)
+    kwargs = dict(
+        data_dir=cfg.data_dir,
+        img_res=cfg.img_res,
+        data_root=data_root,
+        distance_threshold=(
+            cfg.distance_threshold
+            if distance_threshold is None
+            else distance_threshold
+        ),
+        max_verts=cfg.model.max_verts,
+        line_detector=cfg.line_detector,
+    )
+    if with_wireframes is not None:
+        kwargs["with_wireframes"] = with_wireframes
+    if kind == "blender_plain":
+        kwargs["with_wireframes"] = False
+        return _plain_trainable(load_scene("blender", **kwargs))
+    return load_scene("blender", **kwargs)

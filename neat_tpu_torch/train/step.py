@@ -5,6 +5,10 @@ Adam is optax's: b1 0.9, b2 0.999, eps 1e-8, bias correction with the
 update count, and the learning rate ``lr * decay_rate ** (count /
 decay_steps)`` with count 0 at the first update. Unlike the functional JAX
 step, the port updates the model's parameters and the moments in place.
+
+A step's random draws come from the generator it is handed; the runner
+seeds one per step with ``step_generator``. ``scene_to_device`` moves a
+packed scene to the device once.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.camera import psnr as psnr_fn
@@ -55,6 +60,31 @@ def adam_update(state: TrainState, grads, lr_t: float) -> None:
         nu.mul_(B2).add_((1.0 - B2) * g * g)
         upd = (mu / c1) / (torch.sqrt(nu / c2) + EPS)
         p.add_(-lr_t * upd)
+
+
+def step_generator(seed: int, epoch_index: int, step: int, device) -> torch.Generator:
+    """The generator of one training step's draws, a function of the run's
+    seed, the epoch's place in this process's stream of epochs (0 for the
+    first epoch a process runs, resumed or not) and the state's step count:
+    the counterpart of the JAX runner's ``split(PRNGKey(seed))`` per epoch
+    and the step's ``fold_in(rng, state.step)``."""
+    words = np.random.SeedSequence([seed, epoch_index, step]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed((int(words[0]) << 31) ^ int(words[1]))
+
+
+# the packed scene's arrays that a step reads (SceneData attribute names)
+SCENE_KEYS = ("rgb", "intrinsics", "pose", "mask", "labels", "uv_proj", "lines", "verts2d", "verts_mask",
+              "support_idx", "support_count")
+
+
+def scene_to_device(scene, device) -> Dict[str, torch.Tensor]:
+    """The arrays of a packed ``data.datasets.SceneData`` that ``sample_batch``
+    reads, as tensors on ``device`` (the keys ``utils/benchscene.py``
+    builds)."""
+    missing = [k for k in SCENE_KEYS if getattr(scene, k) is None]
+    if missing:
+        raise ValueError(f"the scene has no {missing}: load it with its wireframes or as blender_plain")
+    return {k: torch.as_tensor(getattr(scene, k)).to(device) for k in SCENE_KEYS}
 
 
 def sample_batch(gen: torch.Generator, scene: Dict[str, torch.Tensor], n_rays: int, img_width: int):

@@ -23,6 +23,8 @@ rays; the others agree to rtol 2e-4 / atol 2e-5.
 Every test draws its inputs from its own seeded generator.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -439,3 +441,54 @@ def test_training_step_launches_its_kernels(setup, kwargs, expected):
     torch.cuda.synchronize()
     assert torch.isfinite(metrics["loss"])
     assert {k: f.launches - before[k] for k, f in fns.items()} == {k: expected.get(k, 0) for k in fns}
+
+
+def test_runner_trains_and_resumes_exactly_on_the_card(setup, tmp_path):
+    """The training CLI's runner on a generated 64 x 64 scene, abc-neat-a at
+    full width on the card: 2 epochs, every step launching the main path's
+    kernels with a finite loss; a resumed runner's state equals the saved
+    one bit for bit. The runner seeds each step's own generator."""
+    import os.path as osp
+
+    from neat_tpu_torch.data.synthetic import generate_scene
+    from neat_tpu_torch.train import runner as RUN
+    from neat_tpu_torch.train.checkpoint import host_state, load_checkpoint
+
+    repo = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    text = open(osp.join(repo, "confs", "abc-neat-a.conf")).read()
+    assert "img_res = [512, 512]" in text
+    conf = tmp_path / "abc64.conf"
+    conf.write_text(text.replace("img_res = [512, 512]", "img_res = [64, 64]"))
+    generate_scene(str(tmp_path / "data" / "abc" / "00075213"), n_views=3, res=(64, 64), seed=0)
+    kw = dict(conf=str(conf), data_root=str(tmp_path / "data"), exps_folder=str(tmp_path / "exps"), seed=7)
+    fns = dict(sdf=fused_sdf_kernel, fwd_stash=K.field_fwd_stash_kernel, bwd_stash=K.field_bwd_stash_kernel,
+               rowlocal=K.field_bwd_rowlocal_kernel, dw=DW.field_dw_kernel, fwd=F.field_fwd_kernel,
+               bwd=F.field_bwd_kernel, round=R.fused_round_kernel)
+    expected = dict(sdf=5, fwd_stash=1, bwd_stash=1, rowlocal=1, dw=1, fwd=0, bwd=0, round=0)
+
+    runner = RUN.TrainRunner(nepochs=1, **kw)
+    per_step = []
+    step = runner.step_fn
+
+    def counted(state, scene, gen):
+        before = {k: f.launches for k, f in fns.items()}
+        state, aux = step(state, scene, gen)
+        per_step.append(({k: f.launches - before[k] for k, f in fns.items()}, float(aux["loss"])))
+        return state, aux
+
+    runner.step_fn = counted
+    try:
+        runner.run()
+    finally:
+        runner.close()
+    assert runner.n_views == 3 and len(per_step) == 2 * 3
+    for launches, loss in per_step:
+        assert launches == expected and math.isfinite(loss)
+    saved, epoch = load_checkpoint(runner.ckpt_dir)
+    resumed = RUN.TrainRunner(nepochs=2, is_continue=True, **kw)
+    resumed.close()
+    got = host_state(resumed.state)
+    assert resumed.start_epoch == epoch == 1 and got["step"] == saved["step"] == 6
+    for part in ("params", "mu", "nu"):
+        assert got[part].keys() == saved[part].keys()
+        assert all(got[part][k].tobytes() == saved[part][k].tobytes() for k in saved[part])
