@@ -11,6 +11,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only k2b # build field_bwd_mma.cu, field_dw_mma.cu, fused_field_stash.cu; the split K2-bwd's checks and timings
     python3 chip_smoke.py --only k3b # build K3-bwd's sources (+ the scalar K3); the bf16 K3-bwd's checks and timings
     python3 chip_smoke.py --only runner # build the main path's sources; the runner phase (7. below) alone
+    python3 chip_smoke.py --only k4 # build fused_round.cu (+ K1 for the sampler run); K4's checks and timings
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -47,9 +48,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    K2-fwd's), its "scalar" variant against the scalar K2 pair, timed in
    turns with the scalar kernel and its plain versions; the three kernels
    it runs on each chunk at a chunk's shape, each against its plain
-   version, timed; K4 (the sampler round) at 1024 rays x 128 and
-   x 640 samples taken from a sampler run of the bench model, refine both
-   ways;
+   version, timed; K4 (the sampler round: one warp a ray) on the inputs a
+   sampler run of the bench model hands it, 1024 rays at each of its five
+   widths (128 ... 640 samples) with the refine the sampler runs it with,
+   and at 128 and 640 the other way too; the route, the speculative
+   bisection (equal to the sequential one bit for bit) and the first
+   port's block-per-ray kernel each against the plain version; timed at
+   the five widths by the profiler's device-side events, the three kernels
+   in turns, beside the wrapper's events-timed calls, the plain version
+   and the bound by its special-function operations;
 4. five full-width bf16 training steps of abc-neat-a (bench_step: 8 x 256
    SDF, 4 x 256 heads, 1024 rays x 98 samples, the 512^2 x 4-view bench
    scene) with every kernel launch counter set to 0 just before and read
@@ -103,6 +110,10 @@ OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # reports too long for the 
 # the tensor cores, HBM3 bandwidth
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# special-function operations a second (expf, IEEE division, sqrtf: one MUFU
+# each): 16 a clock on each SM (Hopper white paper: 4 SFUs in each of the
+# SM's four partitions) x 132 SMs x 1.98 GHz, the H100 SXM's boost clock
+PEAK_SFU = 16 * 132 * 1.98e9
 # max |kernel - plain| over max |plain|, each output on its own scale (a
 # kernel that wrote zeros or flipped a sign would score 1 or 2): f32 differs
 # by summation order only; bf16 also by the rare activation whose f32 sum
@@ -1099,50 +1110,166 @@ def sampler_rounds(model, cfg, n_rays, gen):
     return seen
 
 
-def check_k4(data, scfg, refine, reps):
-    """K4 against fused_round_plain on one round's inputs."""
+K4_VARIANTS = ("warp", "spec", "block")  # fused_round_kernel_variant's: the first port is "block"
+
+
+def _k4_agreement(got, want):
+    """Rays whose beta differs (one flipped err <= eps decision) and the
+    worst disagreement of weights and pdf on every other ray."""
     import torch
 
-    from neat_tpu_torch.ops.fused_round import fused_round_kernel, fused_round_plain
+    (bk, wk, pk), (bp, wp, pp) = got, want
+    flipped = (bk - bp).abs() > K4_BETA_RTOL * bp.abs()
+    keep = ~flipped
+    close = lambda a, b: torch.isclose(a, b, rtol=K4_RTOL, atol=K4_ATOL, equal_nan=True)
+    return {
+        "flipped_rays": int(flipped.sum()),
+        "weights_ok": bool(close(wk[keep], wp[keep]).all()),
+        "pdf_ok": bool(close(pk[keep], pp[keep]).all()),
+        "max_abs_err": float(torch.maximum(
+            torch.nan_to_num((wk - wp)[keep]).abs().max(),
+            torch.nan_to_num((pk - pp)[keep]).abs().max())),
+    }
+
+
+def check_k4(data, scfg, refine):
+    """K4 (the wrapper's route) and each of its variants against
+    fused_round_plain on one round's inputs; the speculative bisection equal
+    to the sequential one bit for bit."""
+    import torch
+
+    from neat_tpu_torch.ops.fused_round import fused_round_kernel, fused_round_kernel_variant, fused_round_plain
 
     z, sdf, beta, beta0 = data
     args = (scfg.eps, scfg.beta_iters, scfg.add_tiny, refine)
+    n_rays, lanes = z.shape
+    what = f"K4 S={lanes} refine={refine}"
     with torch.no_grad():
-        bk, wk, pk = fused_round_kernel(z, sdf, beta, beta0, *args)
-        bp, wp, pp = fused_round_plain(z, sdf, beta, beta0[0], *args)
+        got = fused_round_kernel(z, sdf, beta, beta0, *args)
+        variants = {v: fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v) for v in K4_VARIANTS}
+        want = fused_round_plain(z, sdf, beta, beta0[0], *args)
         torch.cuda.synchronize()
-        flipped = (bk - bp).abs() > K4_BETA_RTOL * bp.abs()
-        keep = ~flipped
-        close = lambda a, b: torch.isclose(a, b, rtol=K4_RTOL, atol=K4_ATOL, equal_nan=True)
-        n_rays, lanes = z.shape
+        _, _, pk = got
         rec = {
-            "rays": n_rays, "samples": lanes, "refine": refine,
-            "flipped_rays": int(flipped.sum()),
-            "weights_ok": bool(close(wk[keep], wp[keep]).all()),
-            "pdf_ok": bool(close(pk[keep], pp[keep]).all()),
+            "rays": n_rays, "samples": lanes, "refine": refine, **_k4_agreement(got, want),
             "pdf_last_zero": bool((pk[:, -1] == 0).all()),
             "pdf_all_zero": bool((pk == 0).all()),
             "nan_rows": int(torch.isnan(pk).any(dim=-1).sum()),
-            "max_abs_err": float(torch.maximum(
-                torch.nan_to_num((wk - wp)[keep]).abs().max(),
-                torch.nan_to_num((pk - pp)[keep]).abs().max())),
+            "variants": {v: _k4_agreement(out, want) for v, out in variants.items()},
+            "spec_equals_warp": all(torch.equal(a, b) for a, b in zip(variants["spec"], variants["warp"])),
         }
-        if reps:
-            rec["ms"] = time_ms(lambda: fused_round_kernel(z, sdf, beta, beta0, *args), reps)
-            rec["plain_ms"] = time_ms(lambda: fused_round_plain(z, sdf, beta, beta0[0], *args), reps)
-            # each evaluation of the bound: 4 exp and some 20 f32 operations a
-            # sample; beta0, beta_iters steps, then the weights and the pdf
-            ops = n_rays * lanes * (scfg.beta_iters + 2) * 24
-            nbytes = 4 * (4 * n_rays * lanes + 2 * n_rays)
-            ops_ms, bytes_ms = ops / PEAK_OPS["float32"] * 1e3, nbytes / PEAK_BYTES * 1e3
-            rec["bound_ms"], rec["bound_by"] = max((ops_ms, "operations"), (bytes_ms, "bytes"))
-    what = f"K4 S={lanes} refine={refine}"
-    require(rec["flipped_rays"] <= K4_MAX_FLIPPED * n_rays,
-            f"{what}: beta differs on {rec['flipped_rays']} of {n_rays} rays")
-    require(rec["weights_ok"] and rec["pdf_ok"], f"{what}: weights or pdf differ on a ray whose beta agrees")
+    for name, r in (("route", rec), *rec["variants"].items()):
+        require(r["flipped_rays"] <= K4_MAX_FLIPPED * n_rays,
+                f"{what} ({name}): beta differs on {r['flipped_rays']} of {n_rays} rays")
+        require(r["weights_ok"] and r["pdf_ok"], f"{what} ({name}): weights or pdf differ on a ray whose beta agrees")
+    require(rec["spec_equals_warp"], f"{what}: the speculative bisection differs from the sequential one")
     require(rec["pdf_last_zero"], f"{what}: pdf's last column is not 0")
     require(refine or rec["pdf_all_zero"], f"{what}: pdf is not all 0 without refine")
     return rec
+
+
+def device_ms_in_turns(calls, reps: int):
+    """Mean device time a launch of each kernel, from torch.profiler's
+    device-side events by kernel name: calls maps a label to (fn, the
+    kernel's name); each fn runs once outside the window, then reps times
+    inside it, the labels in turns, their order reversed after every round.
+    Each kernel must have launched reps times in the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, _ in calls.values():
+        fn()
+    order = list(calls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for label in order:
+                calls[label][0]()
+            order.reverse()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for label, (_, kernel) in calls.items():
+        hits = [e for e in events if kernel in e.key]
+        count = sum(e.count for e in hits)
+        require(count == reps, f"the profiler saw {count} launches of {kernel}, expected {reps}")
+        us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+                 for e in hits)
+        out[label] = us / 1e3 / count
+    return out
+
+
+def time_k4(data, scfg, refine, reps):
+    """K4 at one round's shape: the device time of each variant from the
+    profiler, taken in turns; the wrapper's time (CUDA events around reps
+    calls of fused_round_kernel, host work included); the plain version's;
+    and the bound, by the special-function operations the round needs or
+    by its bytes, whichever is longer."""
+    from neat_tpu_torch.ops import fused_round as R
+
+    z, sdf, beta, beta0 = data
+    args = (scfg.eps, scfg.beta_iters, scfg.add_tiny, refine)
+    n_rays, lanes = z.shape
+    items = lanes // 32
+    names = {"warp": f"round_kernel_warp<{items}>", "spec": f"round_kernel_warp_spec<{items}>",
+             "block": f"round_kernel_block<{items // 4}>"}
+    dev = device_ms_in_turns(
+        {v: ((lambda v=v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v)), names[v])
+         for v in K4_VARIANTS}, reps)
+    route = "spec" if lanes in R.SPECULATIVE_SAMPLES else "warp"
+    sfu = R.sfu_ops(n_rays, lanes, scfg.beta_iters, refine)
+    nbytes = 4 * (4 * n_rays * lanes + 2 * n_rays + 1)  # z, sdf in; weights, pdf out; beta in and out; beta0
+    ops_ms, bytes_ms = sfu / PEAK_SFU * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound, by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    return {
+        "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+        "rays": n_rays, "samples": lanes, "refine": refine, "route": route, "ms": dev[route],
+        "variant_ms": dev, "wrapper_ms": time_ms(lambda: R.fused_round_kernel(z, sdf, beta, beta0, *args), reps),
+        "plain_ms": time_ms(lambda: R.fused_round_plain(z, sdf, beta, beta0[0], *args), 5),
+        "sfu_ops": sfu, "bytes": nbytes, "bound_ms": bound, "bound_by": by, "share": bound / dev[route],
+    }
+
+
+def k4_phase(model, cfg, gen, quick):
+    """K4 on the round inputs of a sampler run of the bench model: each of
+    the five widths with the refine the sampler runs it with (True but for
+    the last round), and 128 and 640 the other way too; timed at the five,
+    unless quick."""
+    scfg = cfg.sampler
+    rounds = sampler_rounds(model, cfg, 128 if quick else 1024, gen)
+    require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(scfg.max_total_iters)],
+            "the sampler's rounds did not reach the round kernel at 128 ... 640 samples")
+    last = len(rounds) - 1
+    checks, times = [], []
+    for i, data in enumerate(rounds):
+        refine = i < last
+        checks.append(check_k4(data, scfg, refine))
+        if i in (0, last):
+            checks.append(check_k4(data, scfg, not refine))
+        if not quick:
+            times.append(time_k4(data, scfg, refine, reps=20))
+    return checks, times
+
+
+def print_k4(checks, times) -> None:
+    for r in checks:
+        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on {r['flipped_rays']} rays, "
+              f"max |err| elsewhere {r['max_abs_err']:.3g}, {r['nan_rows']} rows with a NaN pdf; variants "
+              + ", ".join(f"{v} {a['flipped_rays']} rays / {a['max_abs_err']:.3g}" for v, a in r["variants"].items())
+              + f"; spec == warp bit for bit: {r['spec_equals_warp']}", flush=True)
+    for r in times:
+        v = r["variant_ms"]
+        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: device {r['ms']:.4f} ms ({r['route']}; "
+              f"warp {v['warp']:.4f}, spec {v['spec']:.4f}, first port's block {v['block']:.4f}, in turns); "
+              f"wrapper {r['wrapper_ms']:.4f} ms (events, host work included); plain {r['plain_ms']:.3f} ms; "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['sfu_ops'] / (r['rays'] * r['samples']):.2f} "
+              f"special-function ops a sample), {100 * r['share']:.1f}% of it", flush=True)
+    if times:
+        step = {k: sum(r[k] for r in times) for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
+        block = sum(r["variant_ms"]["block"] for r in times)
+        print(f"K4 over the step's {len(times)} rounds: device {step['ms']:.4f} ms (first port's block kernel "
+              f"{block:.4f}), wrapper {step['wrapper_ms']:.4f}, plain {step['plain_ms']:.3f}, bound "
+              f"{step['bound_ms']:.4f} ms", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1601,13 +1728,14 @@ def runner_phase(profile_path=None):
 
 # ---------------------------------------------------------------------------
 
-# --only <kernel>: the one library that kernel lives in
 # --only <kernel>: the libraries that kernel's checks build (the kernel's
-# own and the scalar kernel it is held against)
+# own and the scalar kernel it is held against; for K4, K1's, which the
+# sampler run that makes its inputs launches)
 ONLY = {"k1": ("fused_sdf",), "k2": ("field_fwd_mma", "fused_field_stash"),
         "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash", "field_bwd_mma"),
         "k3b": ("field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field"),
-        "runner": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma")}
+        "runner": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma"),
+        "k4": ("fused_round", "fused_sdf")}
 
 
 def print_runner(r, card: str) -> None:
@@ -1686,6 +1814,9 @@ def main() -> int:
         elif args.only == "runner":
             report["runner"] = runner_phase(os.path.join(OUT_DIR, "profile_runner.txt") if args.profile else None)
             print_runner(report["runner"], card)
+        elif args.only == "k4":
+            report["k4"], report["k4_times"] = k4_phase(model, cfg, gen, args.quick)
+            print_k4(report["k4"], report["k4_times"])
         elif args.only == "k3b":
             report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k3b"]:
@@ -1703,16 +1834,12 @@ def main() -> int:
     fwd2 = fwd_phase("k2", model, cfg, gen, args.quick, n_main)
     fwd3 = fwd_phase("k3", model, cfg, gen, args.quick, n_main)
     k2b = k2b_phase(model, cfg, gen, args.quick, n_main)
-    k2, k3, k4 = [], [], []
-    rounds = sampler_rounds(model, cfg, 128 if args.quick else 1024, gen)
-    require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(cfg.sampler.max_total_iters)],
-            "the sampler's rounds did not reach the round kernel at 128 ... 640 samples")
+    k2, k3 = [], []
+    k4, k4_times = k4_phase(model, cfg, gen, args.quick)
     if args.quick:
         for dt in ("float32", "bfloat16"):
             k2.append(check_k2(model, cfg, 1000, dt, gen, reps=0))
             k3.append(check_k3(model, cfg, 1000, dt, gen, reps=0, self_noise=True))
-        for data in (rounds[0], rounds[-1]):
-            k4.extend(check_k4(data, cfg.sampler, refine, reps=0) for refine in (True, False))
     else:
         for dt in ("float32", "bfloat16"):
             k2.append(check_k2(model, cfg, 4096, dt, gen, reps=0))
@@ -1721,10 +1848,6 @@ def main() -> int:
         k3.append(check_k3(model, cfg, n_main, "bfloat16", gen, reps=4,
                            library=(k2[-1]["fwd_library_ms"], k2[-1]["bwd_library_ms"])))
         k3_chunk = check_k3_chunk(model, cfg, gen, reps=10)
-        for data in (rounds[0], rounds[-1]):
-            k4.extend(check_k4(data, cfg.sampler, refine, reps=0) for refine in (True, False))
-        k4.append(check_k4(rounds[-1], cfg.sampler, False, reps=20))  # the last round, as the sampler runs it
-        k4.append(check_k4(rounds[-1], cfg.sampler, True, reps=20))
     for r in k1:
         print_k1(r)
     for r in fwd2 + fwd3:
@@ -1739,12 +1862,8 @@ def main() -> int:
         print_k3(r)
     if not args.quick:
         print_k3_chunk(k3_chunk)
-    for r in k4:
-        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on "
-              f"{r['flipped_rays']} rays, max |err| elsewhere {r['max_abs_err']:.3g}, "
-              f"{r['nan_rows']} rows with a NaN pdf"
-              + (f", {r['ms']:.4f} ms (plain {r['plain_ms']:.3f})" if "ms" in r else ""), flush=True)
-    report.update(k1=k1, k2_fwd=fwd2, k3_fwd=fwd3, k2b=k2b, k2=k2, k3=k3, k4=k4)
+    print_k4(k4, k4_times)
+    report.update(k1=k1, k2_fwd=fwd2, k3_fwd=fwd3, k2b=k2b, k2=k2, k3=k3, k4=k4, k4_times=k4_times)
     if not args.quick:
         report["k3_chunk"] = k3_chunk
     out_path = os.path.join(OUT_DIR, "chip_smoke.json")
@@ -1799,7 +1918,7 @@ def main() -> int:
               f"mean {paths['z_mean_diff']:.3g}; plain step ms {paths['plain_step_ms']}", flush=True)
         report["runner"] = runner_phase(os.path.join(OUT_DIR, "profile_runner.txt") if args.profile else None)
         print_runner(report["runner"], card)
-        t1, t3, t4 = k1[0], k3[-1], k4[-1]
+        t1, t3 = k1[0], k3[-1]
         src = "neat_tpu_torch/csrc/"
         kernels = [
             dict(name="fused_sdf", route="cuda", source=src + "fused_sdf.cu",
@@ -1854,11 +1973,16 @@ def main() -> int:
                 launches=runs["recompute"]["launches"][name], max_abs_err=k3_chunk[f"{key}_max_abs_err"],
                 ms=k3_chunk[f"{key}_ms"], plain_ms=k3_chunk[f"{key}_plain_ms"],
                 bound_ms=k3_chunk[f"{key}_bound_ms"], bound_by=k3_chunk[f"{key}_bound_by"], library_ms=None))
+        # K4 over the five rounds of a step, each at its width and refine:
+        # device times, plain times and bounds summed
+        ops_ms, bytes_ms = (sum(r[k] for r in k4_times) for k in ("ops_ms", "bytes_ms"))
         kernels.append(dict(
             name="fused_round", route="cuda", source=src + "fused_round.cu",
             replaces="neat_tpu/ops/fused_round.py:105",
-            launches=runs["fused_rounds"]["launches"]["fused_round"], max_abs_err=t4["max_abs_err"],
-            ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=t4["bound_ms"], bound_by=t4["bound_by"],
+            launches=runs["fused_rounds"]["launches"]["fused_round"],
+            max_abs_err=max(r["max_abs_err"] for r in k4),
+            ms=sum(r["ms"] for r in k4_times), plain_ms=sum(r["plain_ms"] for r in k4_times),
+            bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=None))
         report["kernels"] = kernels
     with open(out_path, "w") as f:

@@ -16,23 +16,35 @@ unfused sampler's: the Laplace density is written without ``expm1`` (two
 branches, no cancellation), and the last lane counts as an interval (of
 length 1e10) for the weights only.
 
-What bounds it on the H100: nothing the card is short of. One round moves
-four (R, S) f32 arrays (10.5 MB at 1024 x 640) and takes about 50
-exponentials per sample: microseconds by either rate. Unfused, the same
-round is 11 evaluations of the bound, each a dozen or so elementwise, scan
-and reduction launches whose (R, S) operands go through device memory each
-time; its cost is launch latency. The kernel's yardstick is therefore one
-launch against those.
+What bounds it on the H100: the special-function unit. Per sample, each
+of the 11 evaluations of the bound takes 4 exponentials and 4 IEEE
+divisions (one MUFU operation each); the weights, the pdf and d* add 7 to
+12 more: 95 a sample without ``refine``, 100 with it (``sfu_ops``). At 16
+a clock on each of 132 SMs at 1.98 GHz that is about 15 us at 1024 x 640,
+five times the time its four (R, S) f32 arrays take to cross device
+memory. Unfused, the same round is 11 evaluations of the bound, each a
+dozen or so elementwise, scan and reduction launches whose (R, S) operands
+go through device memory each time.
 
-What the design does about it: one 128-thread block per ray, each thread
-holding S / 128 consecutive samples (dists, sdf, d*) in registers across
-all 11 evaluations of the bound; the two prefix sums are scanned together
-(sequential in the thread, warp shuffles, one cross-warp step), the row
-maximum is a shuffle reduction; weights and pdf leave through shared memory
-so the stores are coalesced. S is a multiple of 128 up to 1024.
+What the design does about it: one warp per ray, each lane holding S / 32
+consecutive samples (dists, sdf, d*) in registers across all 11
+evaluations; the two prefix sums are scanned together (serial in the lane,
+five warp shuffles, serial again), the row maximum is five shuffles that
+leave it in every lane, and no block barrier runs after the load, so a
+ray's chain of evaluations waits on its own warp only. Weights and pdf
+leave through the warp's slice of shared memory so the stores are
+coalesced. S is a multiple of 128 up to 1024. The kernel can also run the
+bisection two steps at a time (the same betas and decisions, 1.5x the
+work for half the chain); ``SPECULATIVE_SAMPLES`` lists the widths where
+that was measured faster. ``fused_round_kernel_variant`` runs either warp
+kernel or the first port's block-per-ray kernel, which every evaluation
+held at two block barriers, for holding them against each other on the
+card.
 
 The ``err <= eps`` decisions sit on a knife edge: the kernel's prefix sums
-add in another order than ``torch.cumsum``, so on a rare ray one decision
+add in another order than ``torch.cumsum`` (``_cumsum_incl``,
+``_cumsum_excl`` and ``_row_sum`` are the plain version's, one place each
+for a test to put the kernel's order in), so on a rare ray one decision
 flips and that ray's beta moves by one bisection step. The source is
 compiled without fused multiply-adds so that nothing else differs.
 """
@@ -54,9 +66,19 @@ def _shift_down(a):
     return torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=-1)
 
 
+def _cumsum_incl(a):
+    """out[:, i] = sum of a[:, :i + 1]."""
+    return torch.cumsum(a, dim=-1)
+
+
 def _cumsum_excl(a):
     """out[:, i] = sum of a[:, :i]."""
     return torch.cat([torch.zeros_like(a[:, :1]), torch.cumsum(a, dim=-1)[:, :-1]], dim=-1)
+
+
+def _row_sum(a):
+    """The sum of each row, (R, S) -> (R, 1)."""
+    return torch.sum(a, dim=-1, keepdim=True)
 
 
 def _laplace_density(sdf, beta):
@@ -82,7 +104,7 @@ def _error_bound_max(beta, sdf, dists, d_star, interval):
     """Max per-ray Lemma-2 opacity-error bound at beta (R, 1) -> (R, 1)."""
     zero = torch.zeros_like(dists)
     fe = torch.where(interval, dists * _laplace_density(sdf, beta), zero)
-    err_int = torch.cumsum(_err_sec(beta, dists, d_star, interval), dim=-1)
+    err_int = _cumsum_incl(_err_sec(beta, dists, d_star, interval))
     bound = _clipped_expm1(err_int) * torch.exp(-_cumsum_excl(fe))
     return torch.max(torch.where(interval, bound, zero), dim=-1, keepdim=True).values
 
@@ -126,19 +148,56 @@ def fused_round_plain(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
     weights = (1.0 - torch.exp(-fe_inf)) * transmittance
 
     if refine:
-        err_int = torch.cumsum(_err_sec(beta_hi, dists, d_star, interval), dim=-1)
+        err_int = _cumsum_incl(_err_sec(beta_hi, dists, d_star, interval))
         bound_opacity = _clipped_expm1(err_int) * transmittance
         pdf = torch.where(interval, bound_opacity + add_tiny, zero)
-        pdf = pdf / torch.sum(pdf, dim=-1, keepdim=True)
+        pdf = pdf / _row_sum(pdf)
     else:
         pdf = zero
     return beta_hi[:, 0], weights, pdf
 
 
-def fused_round_kernel(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
-    """Launch K4 on CUDA tensors: z, sdf (R, S) f32 contiguous with S a
-    multiple of 128, beta (R,) f32, beta0 a one-element f32 tensor ->
-    (beta (R,), weights (R, S), pdf (R, S))."""
+def sfu_ops(n_rays: int, lanes: int, beta_iters: int, refine: bool) -> int:
+    """The special-function operations one round needs on (n_rays, lanes):
+    each ``expf``, IEEE division and ``sqrtf``, one MUFU operation apiece.
+    On each of the lanes - 1 intervals: 8 for each of the beta_iters + 1
+    evaluations of the bound (the density's exp and two divisions, the
+    interval error's exp and two divisions, the bound's two exps) and 2 for
+    d* (sqrtf, a division); on every lane 5 for the weights (the density's
+    exp and two divisions, the transmittance's and alpha's exps); with
+    ``refine``, 5 more on each interval (the interval error's exp and two
+    divisions, the bound's exp, the pdf's normalising division)."""
+    intervals = lanes - 1
+    per_ray = intervals * ((beta_iters + 1) * 8 + 2) + lanes * 5 + (intervals * 5 if refine else 0)
+    return n_rays * per_ray
+
+
+# widths (samples a ray) at which the wrapper runs the bisection two steps at
+# a time: where chip_smoke.py --only k4 timed it faster than the sequential
+# warp kernel in the same call (PERF.md)
+SPECULATIVE_SAMPLES = frozenset()
+_VARIANTS = {"warp": 0, "spec": 1, "block": 2}
+
+
+_LIB = {}  # the loaded library and its widest row, once per process
+
+
+def _lib():
+    """(the round kernel's library, the widest row it takes); the C
+    signatures are set once, when the library first loads."""
+    if not _LIB:
+        lib = _build.load("fused_round")
+        lib.fused_round_max_samples.restype = ctypes.c_int
+        lib.fused_round.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.fused_round.restype = ctypes.c_int
+        _LIB.update(lib=lib, max_samples=lib.fused_round_max_samples())
+    return _LIB["lib"], _LIB["max_samples"]
+
+
+def _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant):
     if not z.is_cuda:
         raise ValueError("fused_round kernel takes CUDA tensors")
     n_rays, lanes = z.shape
@@ -150,35 +209,47 @@ def fused_round_kernel(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
     for t in (sdf, beta, beta0):
         if t.device != z.device:
             raise ValueError("fused_round kernel operands must share one CUDA device")
-    lib = _build.load("fused_round")
-    lib.fused_round_max_samples.restype = ctypes.c_int
-    if lanes % 128 != 0 or not 0 < lanes <= lib.fused_round_max_samples():
-        raise ValueError(
-            f"fused_round kernel takes a multiple of 128 samples up to "
-            f"{lib.fused_round_max_samples()}, got {lanes}"
-        )
+    lib, max_samples = _lib()
+    if lanes % 128 != 0 or not 0 < lanes <= max_samples:
+        raise ValueError(f"fused_round kernel takes a multiple of 128 samples up to {max_samples}, got {lanes}")
     kw = dict(dtype=torch.float32, device=z.device)
     beta_out = torch.empty((n_rays,), **kw)
     weights, pdf = torch.empty((n_rays, lanes), **kw), torch.empty((n_rays, lanes), **kw)
     if n_rays == 0:
         return beta_out, weights, pdf
-    fn = lib.fused_round
-    fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
     P = _build.ptr
-    err = fn(
+    err = lib.fused_round(
         P(z), P(sdf), P(beta), P(beta0), P(beta_out), P(weights), P(pdf), n_rays, lanes,
-        eps, beta_iters, add_tiny, int(refine), _build.stream_ptr(z),
+        eps, beta_iters, add_tiny, int(refine), _VARIANTS[variant], _build.stream_ptr(z),
     )
-    _build.check(err, "fused_round kernel launch")
-    fused_round_kernel.launches += 1
+    _build.check(err, f"fused_round kernel launch ({variant})")
     return beta_out, weights, pdf
 
 
+def fused_round_kernel(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
+    """Launch K4 on CUDA tensors: z, sdf (R, S) f32 contiguous with S a
+    multiple of 128, beta (R,) f32, beta0 a one-element f32 tensor ->
+    (beta (R,), weights (R, S), pdf (R, S)). One warp a ray; the bisection
+    two steps at a time at the widths in ``SPECULATIVE_SAMPLES``."""
+    variant = "spec" if z.shape[-1] in SPECULATIVE_SAMPLES else "warp"
+    out = _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant)
+    if z.shape[0]:
+        fused_round_kernel.launches += 1
+    return out
+
+
 fused_round_kernel.launches = 0
+
+
+def fused_round_kernel_variant(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant: str):
+    """K4 as one of ``_VARIANTS`` on CUDA tensors ("warp": one warp a ray;
+    "spec": the same with the bisection two steps at a time; "block": the
+    first port, one 128-thread block a ray), for holding the kernels against
+    each other on the card; nothing on the model's path calls it and it is
+    not counted."""
+    if variant not in _VARIANTS:
+        raise ValueError(f"fused_round kernel variant {variant!r} is not one of {sorted(_VARIANTS)}")
+    return _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant)
 
 
 @torch.no_grad()

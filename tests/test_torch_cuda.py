@@ -16,9 +16,10 @@ bf16 split K3-bwd exactly in dx and dd, 1e-4 in the gradients, whose f32
 sums it takes in chunks), and in relative L2 norm (f32
 5e-3, bf16 0.15) against autograd; in f32 also against autograd in f64
 over eight draws, in relative L2 norm off the crossings (1e-5), with every point
-that is off explained by one. K4: rays
+that is off explained by one. K4 (each variant): rays
 whose beta differs (one flipped ``err <= eps`` decision) may be 0.5% of the
-rays; the others agree to rtol 2e-4 / atol 2e-5.
+rays; the others agree to rtol 2e-4 / atol 2e-5; the speculative bisection
+equals the sequential one bit for bit.
 
 Every test draws its inputs from its own seeded generator.
 """
@@ -398,22 +399,45 @@ def test_tensor_core_field_forwards_match_plain(setup, n_points, capsys):
                   "entries more than one bf16 step off")
 
 
-@pytest.mark.parametrize("refine", [True, False])
-def test_k4_kernel_matches_plain(setup, refine):
-    rays, lanes = 256, 384
-    gen = _gen(int(refine))
+def _k4_inputs(rays, lanes, seed):
+    gen = _gen(seed)
     z = torch.sort(torch.rand((rays, lanes), generator=gen, device="cuda") * 6.0, dim=-1).values
     sdf = (z - 3.0).abs() - 1.5 + 0.3 * torch.randn((rays, lanes), generator=gen, device="cuda")
     beta = torch.rand((rays,), generator=gen, device="cuda") * 0.45 + 0.05
-    beta0 = torch.tensor([2.1e-3], device="cuda")
+    return z, sdf, beta, torch.tensor([2.1e-3], device="cuda")
+
+
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("lanes", [128, 256, 384, 512, 640, 1024])  # the sampler's five widths and the widest
+def test_k4_kernel_matches_plain(setup, lanes, refine):
+    """The wrapper's route and every variant (the warp kernel, its
+    speculative bisection, the first port's block kernel) against the plain
+    version; the speculative bisection equal to the sequential one."""
+    rays = 256
+    z, sdf, beta, beta0 = _k4_inputs(rays, lanes, seed=lanes + int(refine))
     args = (0.1, 10, 0.0, refine)
-    bk, wk, pk = R.fused_round_kernel(z, sdf, beta, beta0, *args)
     bp, wp, pp = R.fused_round_plain(z, sdf, beta, beta0[0], *args)
-    keep = (bk - bp).abs() <= 2e-4 * bp.abs()
-    assert int((~keep).sum()) <= 0.005 * rays
-    assert torch.allclose(wk[keep], wp[keep], rtol=2e-4, atol=2e-5)
-    assert torch.allclose(pk[keep], pp[keep], rtol=2e-4, atol=2e-5, equal_nan=True)
-    assert bool((pk[:, -1] == 0).all()) and (refine or bool((pk == 0).all()))
+    outs = {v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v) for v in ("warp", "spec", "block")}
+    outs["route"] = R.fused_round_kernel(z, sdf, beta, beta0, *args)
+    for bk, wk, pk in outs.values():
+        keep = (bk - bp).abs() <= 2e-4 * bp.abs()
+        assert int((~keep).sum()) <= 0.005 * rays
+        assert torch.allclose(wk[keep], wp[keep], rtol=2e-4, atol=2e-5)
+        assert torch.allclose(pk[keep], pp[keep], rtol=2e-4, atol=2e-5, equal_nan=True)
+        assert bool((pk[:, -1] == 0).all()) and (refine or bool((pk == 0).all()))
+    assert all(torch.equal(a, b) for a, b in zip(outs["spec"], outs["warp"]))
+
+
+@pytest.mark.parametrize("variant", ["warp", "spec"])
+def test_k4_warp_kernels_take_any_number_of_rays(setup, variant):
+    """A block holds four rays; a ray's result does not depend on the rays
+    beside it, so any leading rows of a batch give those rows' results."""
+    z, sdf, beta, beta0 = _k4_inputs(256, 384, seed=5)
+    args = (0.1, 10, 0.0, True)
+    full = R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=variant)
+    for rays in (1, 3, 5, 130):
+        part = R.fused_round_kernel_variant(z[:rays], sdf[:rays], beta[:rays], beta0, *args, variant=variant)
+        assert all(torch.equal(a, b[:rays]) for a, b in zip(part, full))
 
 
 @pytest.mark.parametrize(

@@ -8,6 +8,17 @@ neat_tpu.
   the kernel's prefix sums are log-step shifted adds, the plain version's
   ``torch.cumsum``, so an ``err <= eps`` decision within an ulp of the knife
   edge may flip (none does on this data).
+* the same with the CUDA kernel's order of summation put into the plain
+  version (each lane's samples in turn, a Hillis-Steele scan over the
+  warp's 32 lanes, the lane's samples again; the pdf's sum a lane's
+  samples, then five xor steps) at the five widths the sampler hands the
+  kernel, each with the ``refine`` it runs with: rays whose beta differs by
+  more than 2e-4 relative (one flipped decision) may be 0.5% of the rays,
+  the others hold to rtol 2e-4 / atol 2e-5, ``chip_smoke.py``'s ``K4_*``
+  limits.
+* the kernel's speculative bisection (two steps at a time) in plain torch
+  gives the sequential search's beta bit for bit, on rays where the beta0
+  check passes and where it does not.
 * ``error_bound_z_vals`` with ``fused_rounds='on'`` (CPU: the plain round)
   against the JAX sampler with ``fused_rounds='interpret'`` on the same
   noise, and a shape the guard turns away against the unfused path.
@@ -73,6 +84,137 @@ def test_round_plain_matches_interpret_kernel(refine):
         assert np.all(n(pt) == 0.0)
 
 
+def _warp_lanes(a):
+    """(R, S) -> (R, 32, S / 32): lane l of the ray's warp holds samples
+    l * S / 32 ... (l + 1) * S / 32 - 1."""
+    return a.reshape(a.shape[0], 32, -1)
+
+
+def _lane_totals(x):
+    tot = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        tot = tot + x[..., k]
+    return tot
+
+
+def _warp_prefix(a, inclusive):
+    """Prefix sums along each row in the warp kernel's order: each lane's
+    samples in turn, a Hillis-Steele scan of the lane totals over the 32
+    lanes, one lane down, then the lane's samples again from there."""
+    x = _warp_lanes(a)
+    tot = _lane_totals(x)
+    lane = torch.arange(32)
+    for o in (1, 2, 4, 8, 16):
+        shifted = torch.cat([torch.zeros_like(tot[:, :o]), tot[:, :-o]], dim=1)
+        tot = torch.where(lane >= o, tot + shifted, tot)
+    run = torch.cat([torch.zeros_like(tot[:, :1]), tot[:, :-1]], dim=1)
+    out = []
+    for k in range(x.shape[-1]):
+        if not inclusive:
+            out.append(run)
+        run = run + x[..., k]
+        if inclusive:
+            out.append(run)
+    return torch.stack(out, dim=-1).reshape(a.shape)
+
+
+def _warp_row_sum(a):
+    """Each row's sum in the warp kernel's order: a lane's samples, then five
+    xor-shuffle steps."""
+    tot = _lane_totals(_warp_lanes(a))
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        tot = tot + tot[:, lane ^ o]
+    return tot[:, :1]
+
+
+# chip_smoke.py's K4 limits: a flipped decision moves beta by more than this
+K4_BETA_RTOL, K4_RTOL, K4_ATOL, K4_MAX_FLIPPED = 2e-4, 2e-4, 2e-5, 0.005
+
+
+@pytest.mark.parametrize("lanes", [128, 256, 384, 512, 640])
+def test_round_in_the_warp_kernels_order_matches_interpret_kernel(monkeypatch, lanes):
+    refine = lanes < 640  # the sampler's last round, at 640, draws nothing
+    monkeypatch.setattr(tfr, "_cumsum_incl", lambda a: _warp_prefix(a, True))
+    monkeypatch.setattr(tfr, "_cumsum_excl", lambda a: _warp_prefix(a, False))
+    monkeypatch.setattr(tfr, "_row_sum", _warp_row_sum)
+    z, sdf, beta = _round_data(s=lanes, seed=lanes)
+    beta0 = np.float32(2e-3 + 1e-4)
+    bj, wj, pj = (np.asarray(a) for a in jfr.fused_sampler_round(
+        jnp.asarray(z), jnp.asarray(sdf), jnp.asarray(beta), jnp.asarray(beta0),
+        refine=refine, interpret=True, **ROUND,
+    ))
+    bt, wt, pt = (n(a) for a in tfr.fused_sampler_round(
+        t(z), t(sdf), t(beta), torch.tensor(beta0), refine=refine, **ROUND
+    ))
+    flipped = np.abs(bt - bj) > K4_BETA_RTOL * np.abs(bj)
+    assert flipped.sum() <= K4_MAX_FLIPPED * len(bj), flipped.sum()
+    keep = ~flipped
+    np.testing.assert_allclose(wt[keep], wj[keep], rtol=K4_RTOL, atol=K4_ATOL)
+    np.testing.assert_allclose(pt[keep], pj[keep], rtol=K4_RTOL, atol=K4_ATOL)
+    assert np.all(pt[:, -1] == 0.0) and (refine or np.all(pt == 0.0))
+    # the emulated order is not cumsum's: on this row the two round apart
+    x = t(wj[:1])
+    assert not torch.equal(_warp_prefix(x, True), torch.cumsum(x, dim=-1))
+
+
+def _bisect_speculative(bound, beta0, beta_in, eps, beta_iters):
+    """The warp kernel's speculative bisection in plain torch, ray by ray:
+    the beta0 check beside the first midpoint, then two steps at a time from
+    the bounds at mid, (lo + mid) / 2 and (mid + hi) / 2, then a last single
+    step when beta_iters is even. bound: betas (R, 1) -> (R, 1)."""
+    lo, hi = beta0.expand(beta_in.shape), beta_in
+    passed = bound(lo) <= eps
+
+    def step(lo, hi, mid, err):
+        ok = err <= eps
+        return torch.where(ok, lo, mid), torch.where(ok, mid, hi)
+
+    if beta_iters == 0:
+        return torch.where(passed, lo, hi)
+    mid = 0.5 * (lo + hi)
+    lo, hi = step(lo, hi, mid, bound(mid))
+    it = 1
+    while it + 2 <= beta_iters:
+        mid = 0.5 * (lo + hi)
+        left, right = 0.5 * (lo + mid), 0.5 * (mid + hi)
+        e_mid, e_left, e_right = bound(mid), bound(left), bound(right)
+        go_left = e_mid <= eps
+        lo, hi = step(lo, hi, mid, e_mid)
+        lo, hi = step(lo, hi, torch.where(go_left, left, right), torch.where(go_left, e_left, e_right))
+        it += 2
+    if it < beta_iters:
+        mid = 0.5 * (lo + hi)
+        lo, hi = step(lo, hi, mid, bound(mid))
+    return torch.where(passed, beta0.expand(beta_in.shape), hi)
+
+
+@pytest.mark.parametrize("beta_iters", [0, 1, 2, 9, 10])
+def test_speculative_bisection_gives_the_sequential_beta(monkeypatch, beta_iters):
+    z, sdf, beta = _round_data(s=256, seed=7)
+    sdf[:16] = 5.0 + 0.1 * np.abs(sdf[:16])  # rays far from any surface: the beta0 check passes
+    z, sdf, beta = t(z), t(sdf), t(beta)
+    beta0 = torch.tensor(2e-3 + 1e-4)
+    seen = []
+    bound_max = tfr._error_bound_max
+    monkeypatch.setattr(tfr, "_error_bound_max", lambda b, *a: seen.append(a) or bound_max(b, *a))
+    want = tfr.fused_round_plain(z, sdf, beta, beta0, ROUND["eps"], beta_iters, ROUND["add_tiny"], False)[0]
+    rest = seen[0]  # sdf, dists, d*, the interval mask, as the plain round computes them
+    bound = lambda b: bound_max(b, *rest)
+    passed = bound(beta0.expand(128, 1)) <= ROUND["eps"]
+    assert 16 <= int(passed.sum()) < 128  # both branches of the check
+    got = _bisect_speculative(bound, beta0, beta[:, None], ROUND["eps"], beta_iters)[:, 0]
+    assert torch.equal(got, want)
+
+
+def test_round_sfu_count():
+    """95 special-function operations a sample without refine, 100 with it,
+    at 10 bisection steps; the last sample is no interval."""
+    assert tfr.sfu_ops(1, 128, 10, False) == 127 * 90 + 128 * 5
+    assert tfr.sfu_ops(1024, 640, 10, True) == 1024 * (639 * 95 + 640 * 5)
+    assert abs(tfr.sfu_ops(1024, 640, 10, False) / (1024 * 640) - 95) < 0.2
+
+
 def test_round_wrapper_checks_its_inputs():
     z, sdf, beta = (t(a) for a in _round_data(r=4, s=128))
     beta0 = torch.tensor(2e-3)
@@ -80,6 +222,8 @@ def test_round_wrapper_checks_its_inputs():
         tfr.fused_round_kernel(z, sdf, beta, beta0.reshape(1), refine=True, **ROUND)
     with pytest.raises(ValueError):  # not a multiple of 128 samples
         tfr.fused_sampler_round(z[:, :100], sdf[:, :100], beta, beta0, refine=True, **ROUND)
+    with pytest.raises(ValueError):  # no such variant
+        tfr.fused_round_kernel_variant(z, sdf, beta, beta0.reshape(1), refine=True, variant="lane", **ROUND)
     assert tfr.fused_round_kernel.launches == 0
 
 
