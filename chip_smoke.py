@@ -1110,7 +1110,9 @@ def sampler_rounds(model, cfg, n_rays, gen):
     return seen
 
 
-K4_VARIANTS = ("warp", "spec", "block")  # fused_round_kernel_variant's: the first port is "block"
+# fused_round_kernel_variant's: the first port is "block"; "opdiv" the warp
+# kernel with the division operator, which "warp" and "spec" must equal
+K4_VARIANTS = ("warp", "spec", "opdiv", "block")
 
 
 def _k4_agreement(got, want):
@@ -1138,6 +1140,7 @@ def check_k4(data, scfg, refine):
     to the sequential one bit for bit."""
     import torch
 
+    from neat_tpu_torch.ops import fused_round as R
     from neat_tpu_torch.ops.fused_round import fused_round_kernel, fused_round_kernel_variant, fused_round_plain
 
     z, sdf, beta, beta0 = data
@@ -1155,14 +1158,17 @@ def check_k4(data, scfg, refine):
             "pdf_last_zero": bool((pk[:, -1] == 0).all()),
             "pdf_all_zero": bool((pk == 0).all()),
             "nan_rows": int(torch.isnan(pk).any(dim=-1).sum()),
+            "passed_share": float(R.passed_check(z, sdf, beta0[0], scfg.eps).float().mean()),
             "variants": {v: _k4_agreement(out, want) for v, out in variants.items()},
             "spec_equals_warp": all(torch.equal(a, b) for a, b in zip(variants["spec"], variants["warp"])),
+            "warp_equals_opdiv": all(torch.equal(a, b) for a, b in zip(variants["warp"], variants["opdiv"])),
         }
     for name, r in (("route", rec), *rec["variants"].items()):
         require(r["flipped_rays"] <= K4_MAX_FLIPPED * n_rays,
                 f"{what} ({name}): beta differs on {r['flipped_rays']} of {n_rays} rays")
         require(r["weights_ok"] and r["pdf_ok"], f"{what} ({name}): weights or pdf differ on a ray whose beta agrees")
     require(rec["spec_equals_warp"], f"{what}: the speculative bisection differs from the sequential one")
+    require(rec["warp_equals_opdiv"], f"{what}: the warp kernel differs from itself with the division operator")
     require(rec["pdf_last_zero"], f"{what}: pdf's last column is not 0")
     require(refine or rec["pdf_all_zero"], f"{what}: pdf is not all 0 without refine")
     return rec
@@ -1212,22 +1218,61 @@ def time_k4(data, scfg, refine, reps):
     n_rays, lanes = z.shape
     items = lanes // 32
     names = {"warp": f"round_kernel_warp<{items}>", "spec": f"round_kernel_warp_spec<{items}>",
-             "block": f"round_kernel_block<{items // 4}>"}
+             "opdiv": f"round_kernel_warp_opdiv<{items}>", "block": f"round_kernel_block<{items // 4}>"}
     dev = device_ms_in_turns(
         {v: ((lambda v=v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v)), names[v])
          for v in K4_VARIANTS}, reps)
     route = "spec" if lanes in R.SPECULATIVE_SAMPLES else "warp"
-    sfu = R.sfu_ops(n_rays, lanes, scfg.beta_iters, refine)
+    # what this run's data needs: one evaluation of the bound on a ray whose
+    # beta0 check passes; beside it the count with every step on every ray
+    n_passed = int(R.passed_check(z, sdf, beta0[0], scfg.eps).sum())
+    sfu = R.sfu_ops(n_rays, lanes, scfg.beta_iters, refine, n_passed)
     nbytes = 4 * (4 * n_rays * lanes + 2 * n_rays + 1)  # z, sdf in; weights, pdf out; beta in and out; beta0
     ops_ms, bytes_ms = sfu / PEAK_SFU * 1e3, nbytes / PEAK_BYTES * 1e3
     bound, by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+    every_step_ms = max(R.sfu_ops(n_rays, lanes, scfg.beta_iters, refine) / PEAK_SFU * 1e3, bytes_ms)
     return {
-        "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+        "passed_rays": n_passed, "every_step_bound_ms": every_step_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
         "rays": n_rays, "samples": lanes, "refine": refine, "route": route, "ms": dev[route],
         "variant_ms": dev, "wrapper_ms": time_ms(lambda: R.fused_round_kernel(z, sdf, beta, beta0, *args), reps),
         "plain_ms": time_ms(lambda: R.fused_round_plain(z, sdf, beta, beta0[0], *args), 5),
         "sfu_ops": sfu, "bytes": nbytes, "bound_ms": bound, "bound_by": by, "share": bound / dev[route],
     }
+
+
+def check_k4_division(gen, n=1 << 22):
+    """The warp kernel's division without the operator's branch against the
+    operator, on n random operand pairs of every exponent, n with a dividend
+    below 2^-60 (the ones it scales), and the special values: equal bit for
+    bit wherever it called itself exact, and exact wherever the divisor lies
+    within 2^60 of 1 and the dividend does too, or is 0, or lies below 2^-60
+    with a quotient in the normal range."""
+    import torch
+
+    from neat_tpu_torch.ops.fused_round import division_check
+
+    def draw(lo, hi):
+        mant = 1 + torch.rand((n,), generator=gen, device="cuda")
+        sign = torch.where(torch.rand((n,), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
+        return sign * mant * torch.exp2(torch.randint(lo, hi, (n,), generator=gen, device="cuda").float())
+
+    special = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-40, 1.17549435e-38, 3.4028235e38, float("inf"),
+                            -float("inf"), float("nan"), 1.0, -1.0, 2.0 ** -60, 2.0 ** 61, 2.0 ** -61, 2.0 ** 62],
+                           device="cuda")
+    sa, sb = torch.meshgrid(special, special, indexing="ij")
+    a = torch.cat([draw(-126, 128), draw(-60, 61), draw(-149, -60), sa.reshape(-1)])
+    b = torch.cat([draw(-126, 128), draw(-60, 61), draw(-30, 31), sb.reshape(-1)])
+    fast, op, exact = division_check(a, b)
+    same = fast.view(torch.int32) == op.view(torch.int32)
+    moderate = lambda x: ((x.view(torch.int32) >> 23) & 0xFF).sub(127).abs() <= 60
+    scaled = (a.abs() < 2.0 ** -60) & (op.abs() >= 2.0 ** -125)
+    inside = moderate(b) & ((a == 0) | moderate(a) | scaled)
+    rec = {"pairs": a.numel(), "exact": int(exact.sum()), "exact_differs": int((exact & ~same).sum()),
+           "inside_not_exact": int((inside & ~exact).sum())}
+    require(rec["exact_differs"] == 0, f"K4 division: {rec['exact_differs']} quotients called exact differ")
+    require(rec["inside_not_exact"] == 0, f"K4 division: {rec['inside_not_exact']} pairs inside the range "
+                                          "were not called exact")
+    return rec
 
 
 def k4_phase(model, cfg, gen, quick):
@@ -1240,7 +1285,7 @@ def k4_phase(model, cfg, gen, quick):
     require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(scfg.max_total_iters)],
             "the sampler's rounds did not reach the round kernel at 128 ... 640 samples")
     last = len(rounds) - 1
-    checks, times = [], []
+    division, checks, times = check_k4_division(gen), [], []
     for i, data in enumerate(rounds):
         refine = i < last
         checks.append(check_k4(data, scfg, refine))
@@ -1248,28 +1293,35 @@ def k4_phase(model, cfg, gen, quick):
             checks.append(check_k4(data, scfg, not refine))
         if not quick:
             times.append(time_k4(data, scfg, refine, reps=20))
-    return checks, times
+    return {"division": division, "checks": checks, "times": times}
 
 
-def print_k4(checks, times) -> None:
+def print_k4(k4) -> None:
+    div, checks, times = k4["division"], k4["checks"], k4["times"]
+    print(f"K4 division without the operator's branch: {div['pairs']} operand pairs, {div['exact']} called "
+          f"exact, {div['exact_differs']} of those differ from the operator", flush=True)
     for r in checks:
         print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on {r['flipped_rays']} rays, "
-              f"max |err| elsewhere {r['max_abs_err']:.3g}, {r['nan_rows']} rows with a NaN pdf; variants "
+              f"max |err| elsewhere {r['max_abs_err']:.3g}, {r['nan_rows']} rows with a NaN pdf, beta0 on "
+              f"{r['passed_share']:.3f} of the rays; variants "
               + ", ".join(f"{v} {a['flipped_rays']} rays / {a['max_abs_err']:.3g}" for v, a in r["variants"].items())
-              + f"; spec == warp bit for bit: {r['spec_equals_warp']}", flush=True)
+              + f"; bit for bit spec == warp: {r['spec_equals_warp']}, warp == opdiv: {r['warp_equals_opdiv']}",
+              flush=True)
     for r in times:
         v = r["variant_ms"]
         print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: device {r['ms']:.4f} ms ({r['route']}; "
-              f"warp {v['warp']:.4f}, spec {v['spec']:.4f}, first port's block {v['block']:.4f}, in turns); "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in v.items()) + ", in turns); "
               f"wrapper {r['wrapper_ms']:.4f} ms (events, host work included); plain {r['plain_ms']:.3f} ms; "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['sfu_ops'] / (r['rays'] * r['samples']):.2f} "
-              f"special-function ops a sample), {100 * r['share']:.1f}% of it", flush=True)
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['passed_rays']} rays pass the beta0 check; "
+              f"{r['sfu_ops'] / (r['rays'] * r['samples']):.2f} special-function ops a sample), "
+              f"{100 * r['share']:.1f}% of it; with every step on every ray {r['every_step_bound_ms']:.4f} ms",
+              flush=True)
     if times:
-        step = {k: sum(r[k] for r in times) for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
+        step = {k: sum(r[k] for r in times) for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "every_step_bound_ms")}
         block = sum(r["variant_ms"]["block"] for r in times)
         print(f"K4 over the step's {len(times)} rounds: device {step['ms']:.4f} ms (first port's block kernel "
               f"{block:.4f}), wrapper {step['wrapper_ms']:.4f}, plain {step['plain_ms']:.3f}, bound "
-              f"{step['bound_ms']:.4f} ms", flush=True)
+              f"{step['bound_ms']:.4f} ms (every step on every ray {step['every_step_bound_ms']:.4f})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1815,8 +1867,8 @@ def main() -> int:
             report["runner"] = runner_phase(os.path.join(OUT_DIR, "profile_runner.txt") if args.profile else None)
             print_runner(report["runner"], card)
         elif args.only == "k4":
-            report["k4"], report["k4_times"] = k4_phase(model, cfg, gen, args.quick)
-            print_k4(report["k4"], report["k4_times"])
+            report["k4"] = k4_phase(model, cfg, gen, args.quick)
+            print_k4(report["k4"])
         elif args.only == "k3b":
             report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k3b"]:
@@ -1835,7 +1887,7 @@ def main() -> int:
     fwd3 = fwd_phase("k3", model, cfg, gen, args.quick, n_main)
     k2b = k2b_phase(model, cfg, gen, args.quick, n_main)
     k2, k3 = [], []
-    k4, k4_times = k4_phase(model, cfg, gen, args.quick)
+    k4 = k4_phase(model, cfg, gen, args.quick)
     if args.quick:
         for dt in ("float32", "bfloat16"):
             k2.append(check_k2(model, cfg, 1000, dt, gen, reps=0))
@@ -1862,8 +1914,8 @@ def main() -> int:
         print_k3(r)
     if not args.quick:
         print_k3_chunk(k3_chunk)
-    print_k4(k4, k4_times)
-    report.update(k1=k1, k2_fwd=fwd2, k3_fwd=fwd3, k2b=k2b, k2=k2, k3=k3, k4=k4, k4_times=k4_times)
+    print_k4(k4)
+    report.update(k1=k1, k2_fwd=fwd2, k3_fwd=fwd3, k2b=k2b, k2=k2, k3=k3, k4=k4)
     if not args.quick:
         report["k3_chunk"] = k3_chunk
     out_path = os.path.join(OUT_DIR, "chip_smoke.json")
@@ -1975,12 +2027,13 @@ def main() -> int:
                 bound_ms=k3_chunk[f"{key}_bound_ms"], bound_by=k3_chunk[f"{key}_bound_by"], library_ms=None))
         # K4 over the five rounds of a step, each at its width and refine:
         # device times, plain times and bounds summed
+        k4_times = k4["times"]
         ops_ms, bytes_ms = (sum(r[k] for r in k4_times) for k in ("ops_ms", "bytes_ms"))
         kernels.append(dict(
             name="fused_round", route="cuda", source=src + "fused_round.cu",
             replaces="neat_tpu/ops/fused_round.py:105",
             launches=runs["fused_rounds"]["launches"]["fused_round"],
-            max_abs_err=max(r["max_abs_err"] for r in k4),
+            max_abs_err=max(r["max_abs_err"] for r in k4["checks"]),
             ms=sum(r["ms"] for r in k4_times), plain_ms=sum(r["plain_ms"] for r in k4_times),
             bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=None))

@@ -157,26 +157,36 @@ def fused_round_plain(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
     return beta_hi[:, 0], weights, pdf
 
 
-def sfu_ops(n_rays: int, lanes: int, beta_iters: int, refine: bool) -> int:
+def sfu_ops(n_rays: int, lanes: int, beta_iters: int, refine: bool, n_passed: int = 0) -> int:
     """The special-function operations one round needs on (n_rays, lanes):
     each ``expf``, IEEE division and ``sqrtf``, one MUFU operation apiece.
-    On each of the lanes - 1 intervals: 8 for each of the beta_iters + 1
-    evaluations of the bound (the density's exp and two divisions, the
-    interval error's exp and two divisions, the bound's two exps) and 2 for
-    d* (sqrtf, a division); on every lane 5 for the weights (the density's
-    exp and two divisions, the transmittance's and alpha's exps); with
-    ``refine``, 5 more on each interval (the interval error's exp and two
-    divisions, the bound's exp, the pdf's normalising division)."""
+    On each of the lanes - 1 intervals: 8 for each evaluation of the bound
+    (the density's exp and two divisions, the interval error's exp and two
+    divisions, the bound's two exps), beta_iters + 1 of them on a ray whose
+    beta0 check fails and 1 on the n_passed rays whose check passes (every
+    step after it keeps beta0), and 2 for d* (sqrtf, a division); on every
+    lane 5 for the weights (the density's exp and two divisions, the
+    transmittance's and alpha's exps); with ``refine``, 5 more on each
+    interval (the interval error's exp and two divisions, the bound's exp,
+    the pdf's normalising division)."""
     intervals = lanes - 1
-    per_ray = intervals * ((beta_iters + 1) * 8 + 2) + lanes * 5 + (intervals * 5 if refine else 0)
-    return n_rays * per_ray
+    evaluations = n_passed + (n_rays - n_passed) * (beta_iters + 1)
+    per_ray = intervals * 2 + lanes * 5 + (intervals * 5 if refine else 0)
+    return n_rays * per_ray + evaluations * intervals * 8
+
+
+def passed_check(z, sdf, beta0, eps) -> torch.Tensor:
+    """(R,) bool: the rays whose bound at beta0 is within eps, which the
+    round's bisection leaves at beta0 (plain torch)."""
+    nan = torch.full(z.shape[:1], float("nan"), dtype=z.dtype, device=z.device)
+    return fused_round_plain(z, sdf, nan, beta0, eps, 0, 0.0, False)[0] == beta0
 
 
 # widths (samples a ray) at which the wrapper runs the bisection two steps at
 # a time: where chip_smoke.py --only k4 timed it faster than the sequential
 # warp kernel in the same call (PERF.md)
 SPECULATIVE_SAMPLES = frozenset()
-_VARIANTS = {"warp": 0, "spec": 1, "block": 2}
+_VARIANTS = {"warp": 0, "spec": 1, "block": 2, "opdiv": 3}
 
 
 _LIB = {}  # the loaded library and its widest row, once per process
@@ -193,6 +203,8 @@ def _lib():
                                      ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.fused_round.restype = ctypes.c_int
+        lib.fused_round_div_check.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        lib.fused_round_div_check.restype = ctypes.c_int
         _LIB.update(lib=lib, max_samples=lib.fused_round_max_samples())
     return _LIB["lib"], _LIB["max_samples"]
 
@@ -243,13 +255,30 @@ fused_round_kernel.launches = 0
 
 def fused_round_kernel_variant(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant: str):
     """K4 as one of ``_VARIANTS`` on CUDA tensors ("warp": one warp a ray;
-    "spec": the same with the bisection two steps at a time; "block": the
-    first port, one 128-thread block a ray), for holding the kernels against
-    each other on the card; nothing on the model's path calls it and it is
-    not counted."""
+    "spec": the same with the bisection two steps at a time; "opdiv": the
+    warp kernel with every division by the operator, which the others must
+    equal bit for bit; "block": the first port, one 128-thread block a
+    ray), for holding the kernels against each other on the card; nothing
+    on the model's path calls it and it is not counted."""
     if variant not in _VARIANTS:
         raise ValueError(f"fused_round kernel variant {variant!r} is not one of {sorted(_VARIANTS)}")
     return _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant)
+
+
+def division_check(a: torch.Tensor, b: torch.Tensor):
+    """a, b (n,) f32 on the card -> (the kernel's quotients a / b without
+    the operator's branch, the operator's, whether the former called itself
+    exact): where it did, the two must be equal bit for bit."""
+    if not (a.is_cuda and a.shape == b.shape and a.dim() == 1):
+        raise ValueError("division_check takes two (n,) f32 CUDA tensors")
+    a, b = a.float().contiguous(), b.float().contiguous()
+    fast, op = torch.empty_like(a), torch.empty_like(a)
+    exact = torch.empty(a.shape, dtype=torch.int32, device=a.device)
+    lib, _ = _lib()
+    P = _build.ptr
+    _build.check(lib.fused_round_div_check(P(a), P(b), P(fast), P(op), P(exact), a.numel(), _build.stream_ptr(a)),
+                 "fused_round division check")
+    return fast, op, exact.bool()
 
 
 @torch.no_grad()

@@ -209,10 +209,23 @@ def test_speculative_bisection_gives_the_sequential_beta(monkeypatch, beta_iters
 
 def test_round_sfu_count():
     """95 special-function operations a sample without refine, 100 with it,
-    at 10 bisection steps; the last sample is no interval."""
+    at 10 bisection steps; the last sample is no interval; a ray whose beta0
+    check passes needs one evaluation of the bound, not 11."""
     assert tfr.sfu_ops(1, 128, 10, False) == 127 * 90 + 128 * 5
     assert tfr.sfu_ops(1024, 640, 10, True) == 1024 * (639 * 95 + 640 * 5)
     assert abs(tfr.sfu_ops(1024, 640, 10, False) / (1024 * 640) - 95) < 0.2
+    assert tfr.sfu_ops(4, 128, 10, False, n_passed=1) == tfr.sfu_ops(4, 128, 10, False) - 10 * 8 * 127
+
+
+def test_round_passed_check_is_the_bisections_beta0():
+    z, sdf, beta = _round_data(s=128, seed=3)
+    sdf[:20] = 5.0  # far from any surface: the check passes
+    z, sdf, beta = t(z), t(sdf), t(beta)
+    beta0 = torch.tensor(2e-3 + 1e-4)
+    passed = tfr.passed_check(z, sdf, beta0, ROUND["eps"])
+    assert bool(passed[:20].all()) and not bool(passed.all())
+    got = tfr.fused_round_plain(z, sdf, beta, beta0, ROUND["eps"], 10, 0.0, False)[0]
+    assert bool((got[passed] == beta0).all()) and bool((got[~passed] != beta0).all())
 
 
 def test_round_wrapper_checks_its_inputs():
