@@ -51,12 +51,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    version, timed; K4 (the sampler round: one warp a ray) on the inputs a
    sampler run of the bench model hands it, 1024 rays at each of its five
    widths (128 ... 640 samples) with the refine the sampler runs it with,
-   and at 128 and 640 the other way too; the route, the speculative
-   bisection (equal to the sequential one bit for bit) and the first
-   port's block-per-ray kernel each against the plain version; timed at
-   the five widths by the profiler's device-side events, the three kernels
-   in turns, beside the wrapper's events-timed calls, the plain version
-   and the bound by its special-function operations;
+   and at 128 and 640 the other way too; it and the first port's
+   block-per-ray kernel each against the plain version; timed at the five
+   widths by the profiler's device-side events, the two kernels in turns,
+   beside the wrapper's events-timed calls, the plain version and the bound
+   by the special-function operations the inputs need;
 4. five full-width bf16 training steps of abc-neat-a (bench_step: 8 x 256
    SDF, 4 x 256 heads, 1024 rays x 98 samples, the 512^2 x 4-view bench
    scene) with every kernel launch counter set to 0 just before and read
@@ -1110,9 +1109,7 @@ def sampler_rounds(model, cfg, n_rays, gen):
     return seen
 
 
-# fused_round_kernel_variant's: the first port is "block"; "opdiv" the warp
-# kernel with the division operator, which "warp" and "spec" must equal
-K4_VARIANTS = ("warp", "spec", "opdiv", "block")
+K4_VARIANTS = ("warp", "block")  # fused_round_kernel_variant's: the wrapper's kernel, the first port
 
 
 def _k4_agreement(got, want):
@@ -1135,9 +1132,8 @@ def _k4_agreement(got, want):
 
 
 def check_k4(data, scfg, refine):
-    """K4 (the wrapper's route) and each of its variants against
-    fused_round_plain on one round's inputs; the speculative bisection equal
-    to the sequential one bit for bit."""
+    """K4 (the wrapper) and the first port's kernel against
+    fused_round_plain on one round's inputs."""
     import torch
 
     from neat_tpu_torch.ops import fused_round as R
@@ -1160,15 +1156,11 @@ def check_k4(data, scfg, refine):
             "nan_rows": int(torch.isnan(pk).any(dim=-1).sum()),
             "passed_share": float(R.passed_check(z, sdf, beta0[0], scfg.eps).float().mean()),
             "variants": {v: _k4_agreement(out, want) for v, out in variants.items()},
-            "spec_equals_warp": all(torch.equal(a, b) for a, b in zip(variants["spec"], variants["warp"])),
-            "warp_equals_opdiv": all(torch.equal(a, b) for a, b in zip(variants["warp"], variants["opdiv"])),
         }
     for name, r in (("route", rec), *rec["variants"].items()):
         require(r["flipped_rays"] <= K4_MAX_FLIPPED * n_rays,
                 f"{what} ({name}): beta differs on {r['flipped_rays']} of {n_rays} rays")
         require(r["weights_ok"] and r["pdf_ok"], f"{what} ({name}): weights or pdf differ on a ray whose beta agrees")
-    require(rec["spec_equals_warp"], f"{what}: the speculative bisection differs from the sequential one")
-    require(rec["warp_equals_opdiv"], f"{what}: the warp kernel differs from itself with the division operator")
     require(rec["pdf_last_zero"], f"{what}: pdf's last column is not 0")
     require(refine or rec["pdf_all_zero"], f"{what}: pdf is not all 0 without refine")
     return rec
@@ -1217,12 +1209,10 @@ def time_k4(data, scfg, refine, reps):
     args = (scfg.eps, scfg.beta_iters, scfg.add_tiny, refine)
     n_rays, lanes = z.shape
     items = lanes // 32
-    names = {"warp": f"round_kernel_warp<{items}>", "spec": f"round_kernel_warp_spec<{items}>",
-             "opdiv": f"round_kernel_warp_opdiv<{items}>", "block": f"round_kernel_block<{items // 4}>"}
+    names = {"warp": f"round_kernel_warp<{items}>", "block": f"round_kernel_block<{items // 4}>"}
     dev = device_ms_in_turns(
         {v: ((lambda v=v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v)), names[v])
          for v in K4_VARIANTS}, reps)
-    route = "spec" if lanes in R.SPECULATIVE_SAMPLES else "warp"
     # what this run's data needs: one evaluation of the bound on a ray whose
     # beta0 check passes; beside it the count with every step on every ray
     n_passed = int(R.passed_check(z, sdf, beta0[0], scfg.eps).sum())
@@ -1233,46 +1223,11 @@ def time_k4(data, scfg, refine, reps):
     every_step_ms = max(R.sfu_ops(n_rays, lanes, scfg.beta_iters, refine) / PEAK_SFU * 1e3, bytes_ms)
     return {
         "passed_rays": n_passed, "every_step_bound_ms": every_step_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-        "rays": n_rays, "samples": lanes, "refine": refine, "route": route, "ms": dev[route],
+        "rays": n_rays, "samples": lanes, "refine": refine, "ms": dev["warp"],
         "variant_ms": dev, "wrapper_ms": time_ms(lambda: R.fused_round_kernel(z, sdf, beta, beta0, *args), reps),
         "plain_ms": time_ms(lambda: R.fused_round_plain(z, sdf, beta, beta0[0], *args), 5),
-        "sfu_ops": sfu, "bytes": nbytes, "bound_ms": bound, "bound_by": by, "share": bound / dev[route],
+        "sfu_ops": sfu, "bytes": nbytes, "bound_ms": bound, "bound_by": by, "share": bound / dev["warp"],
     }
-
-
-def check_k4_division(gen, n=1 << 22):
-    """The warp kernel's division without the operator's branch against the
-    operator, on n random operand pairs of every exponent, n with a dividend
-    below 2^-60 (the ones it scales), and the special values: equal bit for
-    bit wherever it called itself exact, and exact wherever the divisor lies
-    within 2^60 of 1 and the dividend does too, or is 0, or lies below 2^-60
-    with a quotient in the normal range."""
-    import torch
-
-    from neat_tpu_torch.ops.fused_round import division_check
-
-    def draw(lo, hi):
-        mant = 1 + torch.rand((n,), generator=gen, device="cuda")
-        sign = torch.where(torch.rand((n,), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
-        return sign * mant * torch.exp2(torch.randint(lo, hi, (n,), generator=gen, device="cuda").float())
-
-    special = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-40, 1.17549435e-38, 3.4028235e38, float("inf"),
-                            -float("inf"), float("nan"), 1.0, -1.0, 2.0 ** -60, 2.0 ** 61, 2.0 ** -61, 2.0 ** 62],
-                           device="cuda")
-    sa, sb = torch.meshgrid(special, special, indexing="ij")
-    a = torch.cat([draw(-126, 128), draw(-60, 61), draw(-149, -60), sa.reshape(-1)])
-    b = torch.cat([draw(-126, 128), draw(-60, 61), draw(-30, 31), sb.reshape(-1)])
-    fast, op, exact = division_check(a, b)
-    same = fast.view(torch.int32) == op.view(torch.int32)
-    moderate = lambda x: ((x.view(torch.int32) >> 23) & 0xFF).sub(127).abs() <= 60
-    scaled = (a.abs() < 2.0 ** -60) & (op.abs() >= 2.0 ** -125)
-    inside = moderate(b) & ((a == 0) | moderate(a) | scaled)
-    rec = {"pairs": a.numel(), "exact": int(exact.sum()), "exact_differs": int((exact & ~same).sum()),
-           "inside_not_exact": int((inside & ~exact).sum())}
-    require(rec["exact_differs"] == 0, f"K4 division: {rec['exact_differs']} quotients called exact differ")
-    require(rec["inside_not_exact"] == 0, f"K4 division: {rec['inside_not_exact']} pairs inside the range "
-                                          "were not called exact")
-    return rec
 
 
 def k4_phase(model, cfg, gen, quick):
@@ -1285,7 +1240,7 @@ def k4_phase(model, cfg, gen, quick):
     require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(scfg.max_total_iters)],
             "the sampler's rounds did not reach the round kernel at 128 ... 640 samples")
     last = len(rounds) - 1
-    division, checks, times = check_k4_division(gen), [], []
+    checks, times = [], []
     for i, data in enumerate(rounds):
         refine = i < last
         checks.append(check_k4(data, scfg, refine))
@@ -1293,24 +1248,21 @@ def k4_phase(model, cfg, gen, quick):
             checks.append(check_k4(data, scfg, not refine))
         if not quick:
             times.append(time_k4(data, scfg, refine, reps=20))
-    return {"division": division, "checks": checks, "times": times}
+    return {"checks": checks, "times": times}
 
 
 def print_k4(k4) -> None:
-    div, checks, times = k4["division"], k4["checks"], k4["times"]
-    print(f"K4 division without the operator's branch: {div['pairs']} operand pairs, {div['exact']} called "
-          f"exact, {div['exact_differs']} of those differ from the operator", flush=True)
+    checks, times = k4["checks"], k4["times"]
     for r in checks:
         print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on {r['flipped_rays']} rays, "
               f"max |err| elsewhere {r['max_abs_err']:.3g}, {r['nan_rows']} rows with a NaN pdf, beta0 on "
               f"{r['passed_share']:.3f} of the rays; variants "
-              + ", ".join(f"{v} {a['flipped_rays']} rays / {a['max_abs_err']:.3g}" for v, a in r["variants"].items())
-              + f"; bit for bit spec == warp: {r['spec_equals_warp']}, warp == opdiv: {r['warp_equals_opdiv']}",
+              + ", ".join(f"{v} {a['flipped_rays']} rays / {a['max_abs_err']:.3g}" for v, a in r["variants"].items()),
               flush=True)
     for r in times:
         v = r["variant_ms"]
-        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: device {r['ms']:.4f} ms ({r['route']}; "
-              + ", ".join(f"{k} {ms:.4f}" for k, ms in v.items()) + ", in turns); "
+        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: device {v['warp']:.4f} ms, the first "
+              f"port's block kernel {v['block']:.4f} in turns; "
               f"wrapper {r['wrapper_ms']:.4f} ms (events, host work included); plain {r['plain_ms']:.3f} ms; "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['passed_rays']} rays pass the beta0 check; "
               f"{r['sfu_ops'] / (r['rays'] * r['samples']):.2f} special-function ops a sample), "

@@ -16,30 +16,30 @@ unfused sampler's: the Laplace density is written without ``expm1`` (two
 branches, no cancellation), and the last lane counts as an interval (of
 length 1e10) for the weights only.
 
-What bounds it on the H100: the special-function unit. Per sample, each
-of the 11 evaluations of the bound takes 4 exponentials and 4 IEEE
-divisions (one MUFU operation each); the weights, the pdf and d* add 7 to
-12 more: 95 a sample without ``refine``, 100 with it (``sfu_ops``). At 16
-a clock on each of 132 SMs at 1.98 GHz that is about 15 us at 1024 x 640,
-five times the time its four (R, S) f32 arrays take to cross device
-memory. Unfused, the same round is 11 evaluations of the bound, each a
-dozen or so elementwise, scan and reduction launches whose (R, S) operands
-go through device memory each time.
+What bounds it on the H100: its instructions, not its bytes. Per sample,
+each evaluation of the bound takes 4 exponentials and 4 IEEE divisions
+(one MUFU operation each) among some hundred other instructions; a ray
+needs 11 evaluations when its beta0 check fails and 1 when it passes (every
+step after it keeps beta0). The weights, the pdf and d* add 7 to 12 more
+special-function operations: 95 a sample without ``refine`` and 100 with it
+when every check fails (``sfu_ops`` counts what given inputs need). At 16 a
+clock on each of 132 SMs at 1.98 GHz that is about 15 us at 1024 x 640,
+five times the time its four (R, S) f32 arrays take to cross device memory.
+Unfused, the same round is 11 evaluations of the bound, each a dozen or so
+elementwise, scan and reduction launches whose (R, S) operands go through
+device memory each time.
 
 What the design does about it: one warp per ray, each lane holding S / 32
-consecutive samples (dists, sdf, d*) in registers across all 11
-evaluations; the two prefix sums are scanned together (serial in the lane,
-five warp shuffles, serial again), the row maximum is five shuffles that
-leave it in every lane, and no block barrier runs after the load, so a
-ray's chain of evaluations waits on its own warp only. Weights and pdf
-leave through the warp's slice of shared memory so the stores are
-coalesced. S is a multiple of 128 up to 1024. The kernel can also run the
-bisection two steps at a time (the same betas and decisions, 1.5x the
-work for half the chain); ``SPECULATIVE_SAMPLES`` lists the widths where
-that was measured faster. ``fused_round_kernel_variant`` runs either warp
-kernel or the first port's block-per-ray kernel, which every evaluation
-held at two block barriers, for holding them against each other on the
-card.
+consecutive samples (dists, sdf, d*) in registers across all evaluations;
+the two prefix sums are scanned together (serial in the lane, five warp
+shuffles, serial again), the row maximum is five shuffles that leave it in
+every lane, and no block barrier runs after the load, so a ray's chain of
+evaluations waits on its own warp only, and a ray whose beta0 check passes
+skips the bisection. Weights and pdf leave through the warp's slice of
+shared memory so the stores are coalesced. S is a multiple of 128 up to
+1024. ``fused_round_kernel_variant`` also runs the first port's
+block-per-ray kernel, which held every evaluation at two block barriers and
+ran every step, for holding the two against each other on the card.
 
 The ``err <= eps`` decisions sit on a knife edge: the kernel's prefix sums
 add in another order than ``torch.cumsum`` (``_cumsum_incl``,
@@ -182,11 +182,7 @@ def passed_check(z, sdf, beta0, eps) -> torch.Tensor:
     return fused_round_plain(z, sdf, nan, beta0, eps, 0, 0.0, False)[0] == beta0
 
 
-# widths (samples a ray) at which the wrapper runs the bisection two steps at
-# a time: where chip_smoke.py --only k4 timed it faster than the sequential
-# warp kernel in the same call (PERF.md)
-SPECULATIVE_SAMPLES = frozenset()
-_VARIANTS = {"warp": 0, "spec": 1, "block": 2, "opdiv": 3}
+_VARIANTS = {"warp": 0, "block": 1}
 
 
 _LIB = {}  # the loaded library and its widest row, once per process
@@ -203,8 +199,6 @@ def _lib():
                                      ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.fused_round.restype = ctypes.c_int
-        lib.fused_round_div_check.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-        lib.fused_round_div_check.restype = ctypes.c_int
         _LIB.update(lib=lib, max_samples=lib.fused_round_max_samples())
     return _LIB["lib"], _LIB["max_samples"]
 
@@ -241,10 +235,8 @@ def _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant):
 def fused_round_kernel(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
     """Launch K4 on CUDA tensors: z, sdf (R, S) f32 contiguous with S a
     multiple of 128, beta (R,) f32, beta0 a one-element f32 tensor ->
-    (beta (R,), weights (R, S), pdf (R, S)). One warp a ray; the bisection
-    two steps at a time at the widths in ``SPECULATIVE_SAMPLES``."""
-    variant = "spec" if z.shape[-1] in SPECULATIVE_SAMPLES else "warp"
-    out = _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant)
+    (beta (R,), weights (R, S), pdf (R, S)). One warp a ray."""
+    out = _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, "warp")
     if z.shape[0]:
         fused_round_kernel.launches += 1
     return out
@@ -254,31 +246,13 @@ fused_round_kernel.launches = 0
 
 
 def fused_round_kernel_variant(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant: str):
-    """K4 as one of ``_VARIANTS`` on CUDA tensors ("warp": one warp a ray;
-    "spec": the same with the bisection two steps at a time; "opdiv": the
-    warp kernel with every division by the operator, which the others must
-    equal bit for bit; "block": the first port, one 128-thread block a
-    ray), for holding the kernels against each other on the card; nothing
-    on the model's path calls it and it is not counted."""
+    """K4 as one of ``_VARIANTS`` on CUDA tensors ("warp": the kernel the
+    wrapper launches, one warp a ray; "block": the first port, one
+    128-thread block a ray), for holding them against each other on the
+    card; nothing on the model's path calls it and it is not counted."""
     if variant not in _VARIANTS:
         raise ValueError(f"fused_round kernel variant {variant!r} is not one of {sorted(_VARIANTS)}")
     return _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant)
-
-
-def division_check(a: torch.Tensor, b: torch.Tensor):
-    """a, b (n,) f32 on the card -> (the kernel's quotients a / b without
-    the operator's branch, the operator's, whether the former called itself
-    exact): where it did, the two must be equal bit for bit."""
-    if not (a.is_cuda and a.shape == b.shape and a.dim() == 1):
-        raise ValueError("division_check takes two (n,) f32 CUDA tensors")
-    a, b = a.float().contiguous(), b.float().contiguous()
-    fast, op = torch.empty_like(a), torch.empty_like(a)
-    exact = torch.empty(a.shape, dtype=torch.int32, device=a.device)
-    lib, _ = _lib()
-    P = _build.ptr
-    _build.check(lib.fused_round_div_check(P(a), P(b), P(fast), P(op), P(exact), a.numel(), _build.stream_ptr(a)),
-                 "fused_round division check")
-    return fast, op, exact.bool()
 
 
 @torch.no_grad()

@@ -3,13 +3,13 @@
 Each variant is ``csrc/fused_round.cu`` with the text edits and extra nvcc
 flags of ``VARIANTS`` applied (the tree's source is not changed), built
 beside the others into ``build/fused_round_variants/<name>/``, and launched
-as one of the library's kernels (0 the warp kernel, 1 its speculative
-bisection, 2 the first port's block kernel). All run in one process on the
+as one of the library's kernels (0 the warp kernel, 1 the first port's
+block kernel). All run in one process on the
 round inputs a sampler run of the bench model (random weights, 1024 rays)
 hands the kernel at each of its five widths, each with the refine the
 sampler runs it with. Each variant's outputs are compared bit for bit with
 the tree's warp kernel (a variant that changes the arithmetic, such as
-approximate division, is a diagnostic of where the time goes and says so); then
+fast math, is a diagnostic of where the time goes and says so); then
 the variants are timed with CUDA events in rounds, the order reversed from
 round to round, and each one's median over the rounds is printed, beside
 the share of rays whose beta0 check passed. ``--sass`` also counts the
@@ -36,29 +36,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 OUT = os.path.join(REPO, "build", "fused_round_variants")
 
 _SEQ = "for (int it = passed ? beta_iters : 0; it < beta_iters; ++it) {"
-_RET = "    return a == 0.f ? a * r : tiny ? q * 0x1p-100f : q;  // 0 / b keeps the sign a * r has"
 _BLOCK_SEQ = "  for (int it = 0; it < beta_iters; ++it) {\n    const float mid = 0.5f * (lo + hi);"
 _SCAN = "  const int lane = threadIdx.x & 31;\n#pragma unroll\n  for (int o = 1; o < 32; o <<= 1) {"
-_REDUCE = "__device__ __forceinline__ void warp_reduce(float (&v)[N]) {\n#pragma unroll\n  for (int o = 16; o > 0; o >>= 1) {"
 # name: (text edits, extra nvcc flags, kernel)
 VARIANTS = {
     "tree": ((), (), 0),
-    "tree_spec": ((), (), 1),
-    "tree_block": ((), (), 2),
-    "tree_opdiv": ((), (), 3),
+    "tree_block": ((), (), 1),
     # every bisection step, also after the beta0 check has passed: the work
     # of a ray whose check fails, as on a trained model's rays
     "no_exit": (((_SEQ, _SEQ.replace("passed ? beta_iters : 0", "0")),), (), 0),
     # the first port with the early exit
     "block_exit": (((_BLOCK_SEQ, _BLOCK_SEQ.replace("int it = 0;", "int it = curr <= eps ? beta_iters : 0;")),),
-                   (), 2),
-    # diagnostics, other arithmetic: no scan, no row maximum over the lanes
+                   (), 1),
+    # diagnostics, other arithmetic: no scan over the lanes (the row maximum
+    # stays: it keeps the warp's decisions the same in every lane, which its
+    # shuffles need), fast math (approximate division and exponential, fused
+    # multiply-adds)
     "no_scan": (((_SCAN, _SCAN.replace("for (int o = 1; o < 32;", "for (int o = 32; o < 32;")),), (), 0),
-    "no_reduce": (((_REDUCE, _REDUCE.replace("for (int o = 16; o > 0;", "for (int o = 0; o > 0;")),), (), 0),
-    # diagnostics, other arithmetic: the approximate division in place of
-    # the fast path, and fast math (also __expf)
-    "approx_div": (((_RET, "    return __fdividef(a, b);"),), (), 0),
-    "fast_math": (((_RET, "    return __fdividef(a, b);"),), ("--use_fast_math",), 0),
+    "fast_math": ((), ("--use_fast_math",), 0),
 }
 
 

@@ -18,9 +18,7 @@ sums it takes in chunks), and in relative L2 norm (f32
 over eight draws, in relative L2 norm off the crossings (1e-5), with every point
 that is off explained by one. K4 (each variant): rays
 whose beta differs (one flipped ``err <= eps`` decision) may be 0.5% of the
-rays; the others agree to rtol 2e-4 / atol 2e-5; the speculative bisection
-equals the sequential one, and the warp kernel its copy with the division
-operator, bit for bit.
+rays; the others agree to rtol 2e-4 / atol 2e-5.
 
 Every test draws its inputs from its own seeded generator.
 """
@@ -411,15 +409,13 @@ def _k4_inputs(rays, lanes, seed):
 @pytest.mark.parametrize("refine", [True, False])
 @pytest.mark.parametrize("lanes", [128, 256, 384, 512, 640, 1024])  # the sampler's five widths and the widest
 def test_k4_kernel_matches_plain(setup, lanes, refine):
-    """The wrapper's route and every variant (the warp kernel, its
-    speculative bisection, the first port's block kernel) against the plain
-    version; the speculative bisection equal to the sequential one."""
+    """The wrapper's kernel and the first port's against the plain
+    version."""
     rays = 256
     z, sdf, beta, beta0 = _k4_inputs(rays, lanes, seed=lanes + int(refine))
     args = (0.1, 10, 0.0, refine)
     bp, wp, pp = R.fused_round_plain(z, sdf, beta, beta0[0], *args)
-    outs = {v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v)
-            for v in ("warp", "spec", "opdiv", "block")}
+    outs = {v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v) for v in ("warp", "block")}
     outs["route"] = R.fused_round_kernel(z, sdf, beta, beta0, *args)
     for bk, wk, pk in outs.values():
         keep = (bk - bp).abs() <= 2e-4 * bp.abs()
@@ -427,38 +423,17 @@ def test_k4_kernel_matches_plain(setup, lanes, refine):
         assert torch.allclose(wk[keep], wp[keep], rtol=2e-4, atol=2e-5)
         assert torch.allclose(pk[keep], pp[keep], rtol=2e-4, atol=2e-5, equal_nan=True)
         assert bool((pk[:, -1] == 0).all()) and (refine or bool((pk == 0).all()))
-    assert all(torch.equal(a, b) for a, b in zip(outs["spec"], outs["warp"]))
-    assert all(torch.equal(a, b) for a, b in zip(outs["warp"], outs["opdiv"]))
+    assert all(torch.equal(a, b) for a, b in zip(outs["route"], outs["warp"]))
 
 
-def test_k4_division_is_the_operators(setup):
-    """The warp kernel's division without the operator's branch, where it
-    calls itself exact, equals the operator bit for bit; it is exact for
-    every divisor within 2^60 of 1 and every dividend within it too, or 0,
-    or below 2^-60 with a quotient in the normal range."""
-    gen = _gen(11)
-    n = 1 << 22
-    sign = lambda: torch.where(torch.rand((n,), generator=gen, device="cuda") < 0.5, -1.0, 1.0)
-    draw = lambda lo, hi: (1 + torch.rand((n,), generator=gen, device="cuda")) * sign() * torch.exp2(
-        torch.randint(lo, hi, (n,), generator=gen, device="cuda").float())
-    zeros = torch.tensor([0.0, -0.0, 0.0, -0.0], device="cuda")
-    a = torch.cat([draw(-60, 61), draw(-149, -60), zeros])
-    b = torch.cat([draw(-60, 61), draw(-30, 31), torch.tensor([3.0, 3.0, -3.0, -3.0], device="cuda")])
-    fast, op, exact = R.division_check(a, b)
-    assert torch.equal(fast.view(torch.int32)[exact], op.view(torch.int32)[exact])
-    assert bool(exact[:n].all()) and bool(exact[-4:].all())
-    assert bool(exact[n:2 * n][op[n:2 * n].abs() >= 2.0 ** -125].all())
-
-
-@pytest.mark.parametrize("variant", ["warp", "spec"])
-def test_k4_warp_kernels_take_any_number_of_rays(setup, variant):
+def test_k4_warp_kernel_takes_any_number_of_rays(setup):
     """A block holds four rays; a ray's result does not depend on the rays
     beside it, so any leading rows of a batch give those rows' results."""
     z, sdf, beta, beta0 = _k4_inputs(256, 384, seed=5)
     args = (0.1, 10, 0.0, True)
-    full = R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=variant)
+    full = R.fused_round_kernel(z, sdf, beta, beta0, *args)
     for rays in (1, 3, 5, 130):
-        part = R.fused_round_kernel_variant(z[:rays], sdf[:rays], beta[:rays], beta0, *args, variant=variant)
+        part = R.fused_round_kernel(z[:rays], sdf[:rays], beta[:rays], beta0, *args)
         assert all(torch.equal(a, b[:rays]) for a, b in zip(part, full))
 
 

@@ -16,9 +16,8 @@ neat_tpu.
   more than 2e-4 relative (one flipped decision) may be 0.5% of the rays,
   the others hold to rtol 2e-4 / atol 2e-5, ``chip_smoke.py``'s ``K4_*``
   limits.
-* the kernel's speculative bisection (two steps at a time) in plain torch
-  gives the sequential search's beta bit for bit, on rays where the beta0
-  check passes and where it does not.
+* the special-function count of the kernel's bound, and the rays whose
+  beta0 check passes (one evaluation of the bound, not 11).
 * ``error_bound_z_vals`` with ``fused_rounds='on'`` (CPU: the plain round)
   against the JAX sampler with ``fused_rounds='interpret'`` on the same
   noise, and a shape the guard turns away against the unfused path.
@@ -158,55 +157,6 @@ def test_round_in_the_warp_kernels_order_matches_interpret_kernel(monkeypatch, l
     assert not torch.equal(_warp_prefix(x, True), torch.cumsum(x, dim=-1))
 
 
-def _bisect_speculative(bound, beta0, beta_in, eps, beta_iters):
-    """The warp kernel's speculative bisection in plain torch, ray by ray:
-    the beta0 check beside the first midpoint, then two steps at a time from
-    the bounds at mid, (lo + mid) / 2 and (mid + hi) / 2, then a last single
-    step when beta_iters is even. bound: betas (R, 1) -> (R, 1)."""
-    lo, hi = beta0.expand(beta_in.shape), beta_in
-    passed = bound(lo) <= eps
-
-    def step(lo, hi, mid, err):
-        ok = err <= eps
-        return torch.where(ok, lo, mid), torch.where(ok, mid, hi)
-
-    if beta_iters == 0:
-        return torch.where(passed, lo, hi)
-    mid = 0.5 * (lo + hi)
-    lo, hi = step(lo, hi, mid, bound(mid))
-    it = 1
-    while it + 2 <= beta_iters:
-        mid = 0.5 * (lo + hi)
-        left, right = 0.5 * (lo + mid), 0.5 * (mid + hi)
-        e_mid, e_left, e_right = bound(mid), bound(left), bound(right)
-        go_left = e_mid <= eps
-        lo, hi = step(lo, hi, mid, e_mid)
-        lo, hi = step(lo, hi, torch.where(go_left, left, right), torch.where(go_left, e_left, e_right))
-        it += 2
-    if it < beta_iters:
-        mid = 0.5 * (lo + hi)
-        lo, hi = step(lo, hi, mid, bound(mid))
-    return torch.where(passed, beta0.expand(beta_in.shape), hi)
-
-
-@pytest.mark.parametrize("beta_iters", [0, 1, 2, 9, 10])
-def test_speculative_bisection_gives_the_sequential_beta(monkeypatch, beta_iters):
-    z, sdf, beta = _round_data(s=256, seed=7)
-    sdf[:16] = 5.0 + 0.1 * np.abs(sdf[:16])  # rays far from any surface: the beta0 check passes
-    z, sdf, beta = t(z), t(sdf), t(beta)
-    beta0 = torch.tensor(2e-3 + 1e-4)
-    seen = []
-    bound_max = tfr._error_bound_max
-    monkeypatch.setattr(tfr, "_error_bound_max", lambda b, *a: seen.append(a) or bound_max(b, *a))
-    want = tfr.fused_round_plain(z, sdf, beta, beta0, ROUND["eps"], beta_iters, ROUND["add_tiny"], False)[0]
-    rest = seen[0]  # sdf, dists, d*, the interval mask, as the plain round computes them
-    bound = lambda b: bound_max(b, *rest)
-    passed = bound(beta0.expand(128, 1)) <= ROUND["eps"]
-    assert 16 <= int(passed.sum()) < 128  # both branches of the check
-    got = _bisect_speculative(bound, beta0, beta[:, None], ROUND["eps"], beta_iters)[:, 0]
-    assert torch.equal(got, want)
-
-
 def test_round_sfu_count():
     """95 special-function operations a sample without refine, 100 with it,
     at 10 bisection steps; the last sample is no interval; a ray whose beta0
@@ -236,7 +186,7 @@ def test_round_wrapper_checks_its_inputs():
     with pytest.raises(ValueError):  # not a multiple of 128 samples
         tfr.fused_sampler_round(z[:, :100], sdf[:, :100], beta, beta0, refine=True, **ROUND)
     with pytest.raises(ValueError):  # no such variant
-        tfr.fused_round_kernel_variant(z, sdf, beta, beta0.reshape(1), refine=True, variant="lane", **ROUND)
+        tfr.fused_round_kernel_variant(z, sdf, beta, beta0.reshape(1), refine=True, variant="spec", **ROUND)
     assert tfr.fused_round_kernel.launches == 0
 
 
