@@ -183,8 +183,6 @@ def passed_check(z, sdf, beta0, eps) -> torch.Tensor:
 
 
 _VARIANTS = {"warp": 0, "block": 1}
-
-
 _LIB = {}  # the loaded library and its widest row, once per process
 
 
