@@ -48,14 +48,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    K2-fwd's), its "scalar" variant against the scalar K2 pair, timed in
    turns with the scalar kernel and its plain versions; the three kernels
    it runs on each chunk at a chunk's shape, each against its plain
-   version, timed; K4 (the sampler round: one warp a ray) on the inputs a
-   sampler run of the bench model hands it, 1024 rays at each of its five
-   widths (128 ... 640 samples) with the refine the sampler runs it with,
-   and at 128 and 640 the other way too; it and the first port's
-   block-per-ray kernel each against the plain version; timed at the five
-   widths by the profiler's device-side events, the two kernels in turns,
-   beside the wrapper's events-timed calls, the plain version and the bound
-   by the special-function operations the inputs need;
+   version, timed; K4 (the sampler round) on the inputs a sampler run of
+   the bench model hands it, 1024 rays at each of its five widths (128 ...
+   640 samples) with the refine the sampler runs it with, and at 128 and
+   640 the other way too; it and the first port (every bisection step, also
+   once the beta0 check has passed; built from the tree's source by
+   neat_tpu_torch/tools/fused_round_variants.py) each against the plain
+   version; timed at the five widths by the profiler's device-side events,
+   the two kernels in turns, beside the wrapper's events-timed calls, the
+   plain version and the bound by the special-function operations the
+   inputs need;
 4. five full-width bf16 training steps of abc-neat-a (bench_step: 8 x 256
    SDF, 4 x 256 heads, 1024 rays x 98 samples, the 512^2 x 4-view bench
    scene) with every kernel launch counter set to 0 just before and read
@@ -1109,9 +1111,6 @@ def sampler_rounds(model, cfg, n_rays, gen):
     return seen
 
 
-K4_VARIANTS = ("warp", "block")  # fused_round_kernel_variant's: the wrapper's kernel, the first port
-
-
 def _k4_agreement(got, want):
     """Rays whose beta differs (one flipped err <= eps decision) and the
     worst disagreement of weights and pdf on every other ray."""
@@ -1131,22 +1130,22 @@ def _k4_agreement(got, want):
     }
 
 
-def check_k4(data, scfg, refine):
-    """K4 (the wrapper) and the first port's kernel against
-    fused_round_plain on one round's inputs."""
+def check_k4(data, scfg, refine, first_port):
+    """K4 (the wrapper) and the first port's kernel (first_port: its
+    library) against fused_round_plain on one round's inputs."""
     import torch
 
     from neat_tpu_torch.ops import fused_round as R
-    from neat_tpu_torch.ops.fused_round import fused_round_kernel, fused_round_kernel_variant, fused_round_plain
+    from neat_tpu_torch.tools import fused_round_variants as V
 
     z, sdf, beta, beta0 = data
     args = (scfg.eps, scfg.beta_iters, scfg.add_tiny, refine)
     n_rays, lanes = z.shape
     what = f"K4 S={lanes} refine={refine}"
     with torch.no_grad():
-        got = fused_round_kernel(z, sdf, beta, beta0, *args)
-        variants = {v: fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v) for v in K4_VARIANTS}
-        want = fused_round_plain(z, sdf, beta, beta0[0], *args)
+        got = R.fused_round_kernel(z, sdf, beta, beta0, *args)
+        old = V.launch(first_port, z, sdf, beta, beta0, *args)
+        want = R.fused_round_plain(z, sdf, beta, beta0[0], *args)
         torch.cuda.synchronize()
         _, _, pk = got
         rec = {
@@ -1155,12 +1154,17 @@ def check_k4(data, scfg, refine):
             "pdf_all_zero": bool((pk == 0).all()),
             "nan_rows": int(torch.isnan(pk).any(dim=-1).sum()),
             "passed_share": float(R.passed_check(z, sdf, beta0[0], scfg.eps).float().mean()),
-            "variants": {v: _k4_agreement(out, want) for v, out in variants.items()},
+            "first_port": _k4_agreement(old, want),
+            # the exit skips only steps that keep beta0: the first port's
+            # values, NaN where it has NaN
+            "first_port_same_bits": all(bool((a == b).logical_or(a.isnan() & b.isnan()).all())
+                                        for a, b in zip(got, old)),
         }
-    for name, r in (("route", rec), *rec["variants"].items()):
+    for name, r in (("kernel", rec), ("first port", rec["first_port"])):
         require(r["flipped_rays"] <= K4_MAX_FLIPPED * n_rays,
                 f"{what} ({name}): beta differs on {r['flipped_rays']} of {n_rays} rays")
         require(r["weights_ok"] and r["pdf_ok"], f"{what} ({name}): weights or pdf differ on a ray whose beta agrees")
+    require(rec["first_port_same_bits"], f"{what}: the kernel's outputs are not the first port's bits")
     require(rec["pdf_last_zero"], f"{what}: pdf's last column is not 0")
     require(refine or rec["pdf_all_zero"], f"{what}: pdf is not all 0 without refine")
     return rec
@@ -1169,18 +1173,24 @@ def check_k4(data, scfg, refine):
 def device_ms_in_turns(calls, reps: int):
     """Mean device time a launch of each kernel, from torch.profiler's
     device-side events by kernel name: calls maps a label to (fn, the
-    kernel's name); each fn runs once outside the window, then reps times
-    inside it, the labels in turns, their order reversed after every round.
-    The mean is over the launches the profiler recorded, which may miss one
-    (19 of 20 in one run): at least half of them must be there."""
+    kernel's name); each fn runs once in the profiler's warm-up step, whose
+    events are dropped, then reps times in the recorded step, the labels in
+    turns, their order reversed after every round. -> {label: (ms, the
+    launches the profiler held)}. It has been seen to hold 19 of 20, cause
+    unknown: the mean is over those it holds, the caller prints the count,
+    and at least half of the reps must be there."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for fn, _ in calls.values():
-        fn()
     order = list(calls)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # one cycle; its events stay until the next profiler starts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for fn, _ in calls.values():
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             for label in order:
                 calls[label][0]()
@@ -1194,26 +1204,28 @@ def device_ms_in_turns(calls, reps: int):
         require(reps / 2 <= count <= reps, f"the profiler saw {count} launches of {kernel}, expected {reps}")
         us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
                  for e in hits)
-        out[label] = us / 1e3 / count
+        out[label] = (us / 1e3 / count, count)
     return out
 
 
-def time_k4(data, scfg, refine, reps):
-    """K4 at one round's shape: the device time of each variant from the
-    profiler, taken in turns; the wrapper's time (CUDA events around reps
-    calls of fused_round_kernel, host work included); the plain version's;
-    and the bound, by the special-function operations the round needs or
-    by its bytes, whichever is longer."""
+def time_k4(data, scfg, refine, reps, first_port):
+    """K4 at one round's shape: the device time of the kernel and of the
+    first port (first_port: its library) from the profiler, taken in turns;
+    the wrapper's time (CUDA events around reps calls of
+    fused_round_kernel, host work included); the plain version's; and the
+    bound, by the special-function operations the round needs or by its
+    bytes, whichever is longer."""
     from neat_tpu_torch.ops import fused_round as R
+    from neat_tpu_torch.tools import fused_round_variants as V
 
     z, sdf, beta, beta0 = data
     args = (scfg.eps, scfg.beta_iters, scfg.add_tiny, refine)
     n_rays, lanes = z.shape
-    items = lanes // 32
-    names = {"warp": f"round_kernel_warp<{items}>", "block": f"round_kernel_block<{items // 4}>"}
-    dev = device_ms_in_turns(
-        {v: ((lambda v=v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v)), names[v])
-         for v in K4_VARIANTS}, reps)
+    items = lanes // 128
+    dev = device_ms_in_turns({
+        "kernel": (lambda: R.fused_round_kernel(z, sdf, beta, beta0, *args), f"round_kernel<{items}>"),
+        "first_port": (lambda: V.launch(first_port, z, sdf, beta, beta0, *args), f"round_kernel_first_port<{items}>"),
+    }, reps)
     # what this run's data needs: one evaluation of the bound on a ray whose
     # beta0 check passes; beside it the count with every step on every ray
     n_passed = int(R.passed_check(z, sdf, beta0[0], scfg.eps).sum())
@@ -1222,21 +1234,26 @@ def time_k4(data, scfg, refine, reps):
     ops_ms, bytes_ms = sfu / PEAK_SFU * 1e3, nbytes / PEAK_BYTES * 1e3
     bound, by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
     every_step_ms = max(R.sfu_ops(n_rays, lanes, scfg.beta_iters, refine) / PEAK_SFU * 1e3, bytes_ms)
+    ms = dev["kernel"][0]
     return {
         "passed_rays": n_passed, "every_step_bound_ms": every_step_ms, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-        "rays": n_rays, "samples": lanes, "refine": refine, "ms": dev["warp"],
-        "variant_ms": dev, "wrapper_ms": time_ms(lambda: R.fused_round_kernel(z, sdf, beta, beta0, *args), reps),
+        "rays": n_rays, "samples": lanes, "refine": refine, "ms": ms, "first_port_ms": dev["first_port"][0],
+        "seen": {label: n for label, (_, n) in dev.items()}, "reps": reps,
+        "wrapper_ms": time_ms(lambda: R.fused_round_kernel(z, sdf, beta, beta0, *args), reps),
         "plain_ms": time_ms(lambda: R.fused_round_plain(z, sdf, beta, beta0[0], *args), 5),
-        "sfu_ops": sfu, "bytes": nbytes, "bound_ms": bound, "bound_by": by, "share": bound / dev["warp"],
+        "sfu_ops": sfu, "bytes": nbytes, "bound_ms": bound, "bound_by": by, "share": bound / ms,
     }
 
 
 def k4_phase(model, cfg, gen, quick):
     """K4 on the round inputs of a sampler run of the bench model: each of
     the five widths with the refine the sampler runs it with (True but for
-    the last round), and 128 and 640 the other way too; timed at the five,
-    unless quick."""
+    the last round), and 128 and 640 the other way too, the kernel and the
+    first port; timed at the five, unless quick."""
+    from neat_tpu_torch.tools import fused_round_variants as V
+
     scfg = cfg.sampler
+    first_port = V.build(["first_port"])["first_port"]
     rounds = sampler_rounds(model, cfg, 128 if quick else 1024, gen)
     require([r[0].shape[1] for r in rounds] == [128 * (i + 1) for i in range(scfg.max_total_iters)],
             "the sampler's rounds did not reach the round kernel at 128 ... 640 samples")
@@ -1244,36 +1261,37 @@ def k4_phase(model, cfg, gen, quick):
     checks, times = [], []
     for i, data in enumerate(rounds):
         refine = i < last
-        checks.append(check_k4(data, scfg, refine))
+        checks.append(check_k4(data, scfg, refine, first_port))
         if i in (0, last):
-            checks.append(check_k4(data, scfg, not refine))
+            checks.append(check_k4(data, scfg, not refine, first_port))
         if not quick:
-            times.append(time_k4(data, scfg, refine, reps=20))
+            times.append(time_k4(data, scfg, refine, 20, first_port))
     return {"checks": checks, "times": times}
 
 
 def print_k4(k4) -> None:
     checks, times = k4["checks"], k4["times"]
     for r in checks:
+        f = r["first_port"]
         print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: beta differs on {r['flipped_rays']} rays, "
               f"max |err| elsewhere {r['max_abs_err']:.3g}, {r['nan_rows']} rows with a NaN pdf, beta0 on "
-              f"{r['passed_share']:.3f} of the rays; variants "
-              + ", ".join(f"{v} {a['flipped_rays']} rays / {a['max_abs_err']:.3g}" for v, a in r["variants"].items()),
-              flush=True)
+              f"{r['passed_share']:.3f} of the rays; the first port {f['flipped_rays']} rays / "
+              f"{f['max_abs_err']:.3g}, {'its bits' if r['first_port_same_bits'] else 'OTHER BITS'}", flush=True)
     for r in times:
-        v = r["variant_ms"]
-        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: device {v['warp']:.4f} ms, the first "
-              f"port's block kernel {v['block']:.4f} in turns; "
+        seen = r["seen"]
+        print(f"K4 {r['rays']} x {r['samples']} refine={r['refine']}: device {r['ms']:.4f} ms, the first "
+              f"port {r['first_port_ms']:.4f} in turns (the profiler saw {seen['kernel']} and "
+              f"{seen['first_port']} of {r['reps']} launches); "
               f"wrapper {r['wrapper_ms']:.4f} ms (events, host work included); plain {r['plain_ms']:.3f} ms; "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({r['passed_rays']} rays pass the beta0 check; "
               f"{r['sfu_ops'] / (r['rays'] * r['samples']):.2f} special-function ops a sample), "
               f"{100 * r['share']:.1f}% of it; with every step on every ray {r['every_step_bound_ms']:.4f} ms",
               flush=True)
     if times:
-        step = {k: sum(r[k] for r in times) for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "every_step_bound_ms")}
-        block = sum(r["variant_ms"]["block"] for r in times)
-        print(f"K4 over the step's {len(times)} rounds: device {step['ms']:.4f} ms (first port's block kernel "
-              f"{block:.4f}), wrapper {step['wrapper_ms']:.4f}, plain {step['plain_ms']:.3f}, bound "
+        step = {k: sum(r[k] for r in times)
+                for k in ("ms", "first_port_ms", "wrapper_ms", "plain_ms", "bound_ms", "every_step_bound_ms")}
+        print(f"K4 over the step's {len(times)} rounds: device {step['ms']:.4f} ms (the first port "
+              f"{step['first_port_ms']:.4f}), wrapper {step['wrapper_ms']:.4f}, plain {step['plain_ms']:.3f}, bound "
               f"{step['bound_ms']:.4f} ms (every step on every ray {step['every_step_bound_ms']:.4f})", flush=True)
 
 
@@ -1978,18 +1996,21 @@ def main() -> int:
                 launches=runs["recompute"]["launches"][name], max_abs_err=k3_chunk[f"{key}_max_abs_err"],
                 ms=k3_chunk[f"{key}_ms"], plain_ms=k3_chunk[f"{key}_plain_ms"],
                 bound_ms=k3_chunk[f"{key}_bound_ms"], bound_by=k3_chunk[f"{key}_bound_by"], library_ms=None))
-        # K4 over the five rounds of a step, each at its width and refine:
-        # device times, plain times and bounds summed
+        # K4 a launch: the mean over the five rounds of a step, each at its
+        # width and refine, of the device time, the plain time and the
+        # round's own bound; bound_by names what bounds the larger part of
+        # it; the step's sums beside them
         k4_times = k4["times"]
-        ops_ms, bytes_ms = (sum(r[k] for r in k4_times) for k in ("ops_ms", "bytes_ms"))
+        mean = lambda key: statistics.fmean(r[key] for r in k4_times)
+        by = {b: sum(r["bound_ms"] for r in k4_times if r["bound_by"] == b) for b in ("operations", "bytes")}
         kernels.append(dict(
             name="fused_round", route="cuda", source=src + "fused_round.cu",
             replaces="neat_tpu/ops/fused_round.py:105",
             launches=runs["fused_rounds"]["launches"]["fused_round"],
             max_abs_err=max(r["max_abs_err"] for r in k4["checks"]),
-            ms=sum(r["ms"] for r in k4_times), plain_ms=sum(r["plain_ms"] for r in k4_times),
-            bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            library_ms=None))
+            ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"), bound_by=max(by, key=by.get),
+            library_ms=None, step_ms=len(k4_times) * mean("ms"),
+            step_bound_ms=len(k4_times) * mean("bound_ms")))
         report["kernels"] = kernels
     with open(out_path, "w") as f:
         json.dump(report, f, indent=1)

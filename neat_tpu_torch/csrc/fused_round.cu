@@ -2,13 +2,32 @@
 // Replaces neat_tpu/ops/fused_round.py:_round_kernel; the math is
 // fused_round_plain of ops/fused_round.py, which also holds the design note.
 //
+// What bounds it on the H100: its instructions, not its bytes. Per sample,
+// each evaluation of the error bound takes 4 expf and 4 IEEE divisions (one
+// MUFU operation each, EX2 or RCP) among some hundred other instructions:
+// expf's range reduction, each division's Newton steps and its check for the
+// slow path. A round needs 11 evaluations on a ray whose beta0 check fails
+// (beta0, then 10 bisection steps) and 1 on a ray whose check passes, since
+// every step after it keeps beta0; the weights add 3 expf and 2 divisions a
+// sample, the refinement pdf 2 expf and 3 divisions, d* one sqrtf and one
+// division: 95 special-function operations a sample without refine and 100
+// with it when every check fails. At 16 a clock on each of 132 SMs at 1.98
+// GHz that is about 15 us at 1024 x 640, five times the time the round's
+// four (R, S) f32 arrays take to cross device memory.
+//
 // One 128-thread block per ray. Thread t owns the ITEMS = S / 128 consecutive
 // samples t * ITEMS ... of its ray and keeps their dists, sdf and d* in
 // registers through the convergence check, the bisection and the final
 // weights; every error-bound evaluation is two prefix sums (scanned together)
-// and a row maximum over the block. All f32. The file is compiled without
-// fused multiply-adds (ops/_build.py), so each product and sum rounds as the
-// plain version's separate operations do.
+// and a row maximum over the block. A ray whose beta0 check passes skips the
+// bisection. One warp a ray, with no block barrier, was measured slower at
+// every width the sampler uses (PERF.md): 1024 rays give it 8 warps an SM,
+// too few to hide the latency of the instruction chains around each special
+// function, where this layout gives 32.
+//
+// All f32. The file is compiled without fused multiply-adds (ops/_build.py),
+// so each product and sum rounds as the plain version's separate operations
+// do, and no fast-math intrinsic stands in for expf, a division or sqrtf.
 #include <cuda_runtime.h>
 
 constexpr int NT4 = 128;      // threads per ray
@@ -155,12 +174,16 @@ __global__ void __launch_bounds__(NT4)
     ray.dstar[k] = (same_sign && iv) ? ds : 0.f;
   }
 
-  // convergence check at beta0, then the bisection line search
+  // convergence check at beta0, then the bisection line search. Once the
+  // check has passed, hi = lo = beta0, and every step's midpoint is
+  // 0.5 (beta0 + beta0) = beta0 exactly (any finite beta0 below 2^127), whose
+  // bound passed: each step keeps beta0, so the block skips them. curr is the
+  // block's maximum, the same in every thread, so the whole block does.
   const float beta0 = beta0_p[0];
   const float curr = ray.error_bound(beta0, ws, wm);
   float hi = curr <= eps ? beta0 : beta_in[blockIdx.x];
   float lo = beta0;
-  for (int it = 0; it < beta_iters; ++it) {
+  for (int it = curr <= eps ? beta_iters : 0; it < beta_iters; ++it) {
     const float mid = 0.5f * (lo + hi);
     const bool ok = ray.error_bound(mid, ws, wm) <= eps;
     hi = ok ? mid : hi;

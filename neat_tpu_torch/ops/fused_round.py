@@ -29,17 +29,14 @@ Unfused, the same round is 11 evaluations of the bound, each a dozen or so
 elementwise, scan and reduction launches whose (R, S) operands go through
 device memory each time.
 
-What the design does about it: one warp per ray, each lane holding S / 32
-consecutive samples (dists, sdf, d*) in registers across all evaluations;
-the two prefix sums are scanned together (serial in the lane, five warp
-shuffles, serial again), the row maximum is five shuffles that leave it in
-every lane, and no block barrier runs after the load, so a ray's chain of
-evaluations waits on its own warp only, and a ray whose beta0 check passes
-skips the bisection. Weights and pdf leave through the warp's slice of
-shared memory so the stores are coalesced. S is a multiple of 128 up to
-1024. ``fused_round_kernel_variant`` also runs the first port's
-block-per-ray kernel, which held every evaluation at two block barriers and
-ran every step, for holding the two against each other on the card.
+What the design does about it: one 128-thread block per ray, each thread
+holding S / 128 consecutive samples (dists, sdf, d*) in registers across
+the evaluations of the bound; the two prefix sums are scanned together
+(serial in the thread, warp shuffles, one step over the warps' totals),
+the row maximum is a shuffle reduction and one step over the warps, and a
+ray whose beta0 check passes skips the bisection; weights and pdf leave
+through shared memory so the stores are coalesced. S is a multiple of 128
+up to 1024.
 
 The ``err <= eps`` decisions sit on a knife edge: the kernel's prefix sums
 add in another order than ``torch.cumsum`` (``_cumsum_incl``,
@@ -182,7 +179,6 @@ def passed_check(z, sdf, beta0, eps) -> torch.Tensor:
     return fused_round_plain(z, sdf, nan, beta0, eps, 0, 0.0, False)[0] == beta0
 
 
-_VARIANTS = {"warp": 0, "block": 1}
 _LIB = {}  # the loaded library and its widest row, once per process
 
 
@@ -194,14 +190,17 @@ def _lib():
         lib.fused_round_max_samples.restype = ctypes.c_int
         lib.fused_round.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.fused_round.restype = ctypes.c_int
         _LIB.update(lib=lib, max_samples=lib.fused_round_max_samples())
     return _LIB["lib"], _LIB["max_samples"]
 
 
-def _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant):
+def fused_round_kernel(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
+    """Launch K4 on CUDA tensors: z, sdf (R, S) f32 contiguous with S a
+    multiple of 128, beta (R,) f32, beta0 a one-element f32 tensor ->
+    (beta (R,), weights (R, S), pdf (R, S))."""
     if not z.is_cuda:
         raise ValueError("fused_round kernel takes CUDA tensors")
     n_rays, lanes = z.shape
@@ -224,33 +223,14 @@ def _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant):
     P = _build.ptr
     err = lib.fused_round(
         P(z), P(sdf), P(beta), P(beta0), P(beta_out), P(weights), P(pdf), n_rays, lanes,
-        eps, beta_iters, add_tiny, int(refine), _VARIANTS[variant], _build.stream_ptr(z),
+        eps, beta_iters, add_tiny, int(refine), _build.stream_ptr(z),
     )
-    _build.check(err, f"fused_round kernel launch ({variant})")
+    _build.check(err, "fused_round kernel launch")
+    fused_round_kernel.launches += 1
     return beta_out, weights, pdf
 
 
-def fused_round_kernel(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine):
-    """Launch K4 on CUDA tensors: z, sdf (R, S) f32 contiguous with S a
-    multiple of 128, beta (R,) f32, beta0 a one-element f32 tensor ->
-    (beta (R,), weights (R, S), pdf (R, S)). One warp a ray."""
-    out = _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, "warp")
-    if z.shape[0]:
-        fused_round_kernel.launches += 1
-    return out
-
-
 fused_round_kernel.launches = 0
-
-
-def fused_round_kernel_variant(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant: str):
-    """K4 as one of ``_VARIANTS`` on CUDA tensors ("warp": the kernel the
-    wrapper launches, one warp a ray; "block": the first port, one
-    128-thread block a ray), for holding them against each other on the
-    card; nothing on the model's path calls it and it is not counted."""
-    if variant not in _VARIANTS:
-        raise ValueError(f"fused_round kernel variant {variant!r} is not one of {sorted(_VARIANTS)}")
-    return _launch(z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, variant)
 
 
 @torch.no_grad()

@@ -2,23 +2,26 @@
 
 Each variant is ``csrc/fused_round.cu`` with the text edits and extra nvcc
 flags of ``VARIANTS`` applied (the tree's source is not changed), built
-beside the others into ``build/fused_round_variants/<name>/``, and launched
-as one of the library's kernels (0 the warp kernel, 1 the first port's
-block kernel). All run in one process on the
-round inputs a sampler run of the bench model (random weights, 1024 rays)
-hands the kernel at each of its five widths, each with the refine the
-sampler runs it with. Each variant's outputs are compared bit for bit with
-the tree's warp kernel (a variant that changes the arithmetic, such as
-fast math, is a diagnostic of where the time goes and says so); then
-the variants are timed with CUDA events in rounds, the order reversed from
-round to round, and each one's median over the rounds is printed, beside
-the share of rays whose beta0 check passed. ``--sass`` also counts the
-special-function, branch and shuffle instructions of each warp kernel in
-the tree's library (cuobjdump).
+beside the others into ``build/fused_round_variants/<name>/``. The first
+port, which runs every bisection step also once the beta0 check has passed,
+is one of them (``chip_smoke.py`` times it beside the tree's kernel). All
+run in one process on the round inputs a sampler run of the bench model
+(random weights, 1024 rays) hands the kernel at each of its five widths,
+each with the refine the sampler runs it with. Each variant's outputs are
+compared bit for bit with the tree's kernel (a variant that changes the
+arithmetic, such as fast math, is a diagnostic of where the time goes and
+says so); then the variants are timed with CUDA events in rounds, the order
+reversed from round to round, and each one's median over the rounds is
+printed, beside the share of rays whose beta0 check passed. ``--sass`` also
+counts the special-function, branch and shuffle instructions of each kernel
+in the tree's library (cuobjdump). ``--launches N`` profiles N bench steps
+of the fused_rounds path with each variant's library in the wrapper's place
+and prints the launches a step: a data-dependent count (the auction's
+rounds) moves with any change in the kernel's bits.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 -m neat_tpu_torch.tools.fused_round_variants [--rounds 15] [--reps 20] [--sass]
+    python3 -m neat_tpu_torch.tools.fused_round_variants [--rounds 15] [--reps 20] [--sass] [--launches 3]
 """
 
 from __future__ import annotations
@@ -35,25 +38,19 @@ from collections import Counter
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT = os.path.join(REPO, "build", "fused_round_variants")
 
-_SEQ = "for (int it = passed ? beta_iters : 0; it < beta_iters; ++it) {"
-_BLOCK_SEQ = "  for (int it = 0; it < beta_iters; ++it) {\n    const float mid = 0.5f * (lo + hi);"
-_SCAN = "  const int lane = threadIdx.x & 31;\n#pragma unroll\n  for (int o = 1; o < 32; o <<= 1) {"
-# name: (text edits, extra nvcc flags, kernel)
+_EXIT = "for (int it = curr <= eps ? beta_iters : 0; it < beta_iters; ++it) {"
+# name: (text edits, extra nvcc flags)
 VARIANTS = {
-    "tree": ((), (), 0),
-    "tree_block": ((), (), 1),
+    "tree": ((), ()),
     # every bisection step, also after the beta0 check has passed: the work
-    # of a ray whose check fails, as on a trained model's rays
-    "no_exit": (((_SEQ, _SEQ.replace("passed ? beta_iters : 0", "0")),), (), 0),
-    # the first port with the early exit
-    "block_exit": (((_BLOCK_SEQ, _BLOCK_SEQ.replace("int it = 0;", "int it = curr <= eps ? beta_iters : 0;")),),
-                   (), 1),
-    # diagnostics, other arithmetic: no scan over the lanes (the row maximum
-    # stays: it keeps the warp's decisions the same in every lane, which its
-    # shuffles need), fast math (approximate division and exponential, fused
-    # multiply-adds)
-    "no_scan": (((_SCAN, _SCAN.replace("for (int o = 1; o < 32;", "for (int o = 32; o < 32;")),), (), 0),
-    "fast_math": ((), ("--use_fast_math",), 0),
+    # of a ray whose check fails, as on a trained model's rays; the kernel
+    # renamed, so that a profiler tells it from the tree's
+    "first_port": (((_EXIT, _EXIT.replace("curr <= eps ? beta_iters : 0", "0")),
+                    ("    round_kernel(const float*", "    round_kernel_first_port(const float*"),
+                    ("round_kernel<ITEMS><<<", "round_kernel_first_port<ITEMS><<<")), ()),
+    # a diagnostic, other arithmetic: approximate division and exponential,
+    # fused multiply-adds
+    "fast_math": ((), ("--use_fast_math",)),
 }
 
 
@@ -89,11 +86,31 @@ def build(names):
         lib = ctypes.CDLL(os.path.join(OUT, name, "lib.so"))
         lib.fused_round.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         lib.fused_round.restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+def launch(lib, z, sdf, beta, beta0, eps, beta_iters, add_tiny, refine, out=None):
+    """One launch of a variant's kernel on CUDA tensors, as
+    ``fused_round_kernel`` launches the tree's (not counted); ``out``: the
+    (beta, weights, pdf) tensors to write, fresh ones if None."""
+    import torch
+
+    from neat_tpu_torch.ops import _build
+
+    n_rays, lanes = z.shape
+    if out is None:
+        kw = dict(dtype=torch.float32, device=z.device)
+        out = (torch.empty((n_rays,), **kw), torch.empty((n_rays, lanes), **kw),
+               torch.empty((n_rays, lanes), **kw))
+    P = _build.ptr
+    err = lib.fused_round(P(z), P(sdf), P(beta), P(beta0), *(P(t) for t in out), n_rays, lanes, eps,
+                          beta_iters, add_tiny, int(refine), _build.stream_ptr(z))
+    _build.check(err, "fused_round variant launch")
+    return out
 
 
 def sass_counts(so_path: str):
@@ -122,6 +139,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=20, help="launches in each timed window")
     ap.add_argument("--only", nargs="*", default=None, help="variant names (default: all)")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--launches", type=int, default=0,
+                    help="also profile this many fused_rounds bench steps with each variant's kernel in the "
+                         "wrapper's place, and print the launches a step")
     args = ap.parse_args()
 
     import torch
@@ -142,13 +162,11 @@ def main() -> int:
     _build.build_all(("fused_sdf",))
     libs = build(names)
     if args.sass:
-        from neat_tpu_torch.ops import _build as B
-
-        cuobjdump = os.path.join(os.path.dirname(B._nvcc()), "cuobjdump")
+        cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
         with open(os.path.join(OUT, "tree.sass"), "w") as f:  # the whole listing, for reading
             subprocess.run([cuobjdump, "-sass", os.path.join(OUT, "tree", "lib.so")], check=True, stdout=f)
         for sym, c in sorted(sass_counts(os.path.join(OUT, "tree", "lib.so")).items()):
-            if "warp" in sym or "block" in sym:
+            if "round_kernel" in sym:
                 keys = ("all", "MUFU", "FCHK", "CALL", "BRA", "BSSY", "SHFL", "BAR", "LDL", "STL")
                 print(f"sass {sym}: " + ", ".join(f"{k} {c[k]}" for k in keys), flush=True)
 
@@ -157,25 +175,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rounds = sampler_rounds(model, cfg, 1024, gen)
     scfg = cfg.sampler
-    P = _build.ptr
     for i, (z, sdf, beta, beta0) in enumerate(rounds):
         refine = i < len(rounds) - 1
         n_rays, lanes = z.shape
         outs = {}
+        round_args = (scfg.eps, scfg.beta_iters, scfg.add_tiny, refine)
 
-        def launch(name, outs=outs, z=z, sdf=sdf, beta=beta, beta0=beta0, refine=refine):
-            if name not in outs:
-                kw = dict(dtype=torch.float32, device="cuda")
-                outs[name] = (torch.empty((n_rays,), **kw), torch.empty((n_rays, lanes), **kw),
-                              torch.empty((n_rays, lanes), **kw))
-            b, w, p = outs[name]
-            err = libs[name].fused_round(
-                P(z), P(sdf), P(beta), P(beta0), P(b), P(w), P(p), n_rays, lanes, scfg.eps, scfg.beta_iters,
-                scfg.add_tiny, int(refine), VARIANTS[name][2], _build.stream_ptr(z))
-            _build.check(err, f"variant {name}")
+        def run(name, outs=outs, data=(z, sdf, beta, beta0), round_args=round_args):
+            outs[name] = launch(libs[name], *data, *round_args, out=outs.get(name))
 
         for name in names:
-            launch(name)
+            run(name)
         torch.cuda.synchronize()
         ref = outs["tree"]
         same = {name: all(torch.equal(a, b) for a, b in zip(outs[name], ref)) for name in names}
@@ -188,7 +198,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 start.record()
                 for _ in range(args.reps):
-                    launch(name)
+                    run(name)
                 end.record()
                 torch.cuda.synchronize()
                 times[name].append(start.elapsed_time(end) / args.reps)
@@ -197,6 +207,19 @@ def main() -> int:
         for name in names:
             print(f"  {name:12s} {statistics.median(times[name]):.4f} ms (min {min(times[name]):.4f})  "
                   f"{'same bits as tree' if same[name] else 'DIFFERS from tree'}", flush=True)
+    if args.launches:
+        from chip_smoke import profile_steps
+        from neat_tpu_torch.ops import fused_round as R
+
+        R._lib()
+        tree_lib = R._LIB["lib"]
+        for name in names:
+            R._LIB["lib"] = libs[name]  # the wrapper launches (and counts) this variant's kernel
+            prof = profile_steps("fused_rounds", args.launches, os.path.join(OUT, f"profile_{name}.txt"))
+            print(f"fused_rounds step with {name}'s kernel: {prof['launches_per_step']:.1f} launches a step, "
+                  f"device busy {prof['device_busy_ms_per_step']:.3f} ms a step over {args.launches} steps",
+                  flush=True)
+        R._LIB["lib"] = tree_lib
     print(card_line(), flush=True)
     return 0
 

@@ -16,7 +16,7 @@ bf16 split K3-bwd exactly in dx and dd, 1e-4 in the gradients, whose f32
 sums it takes in chunks), and in relative L2 norm (f32
 5e-3, bf16 0.15) against autograd; in f32 also against autograd in f64
 over eight draws, in relative L2 norm off the crossings (1e-5), with every point
-that is off explained by one. K4 (each variant): rays
+that is off explained by one. K4 (and its first port): rays
 whose beta differs (one flipped ``err <= eps`` decision) may be 0.5% of the
 rays; the others agree to rtol 2e-4 / atol 2e-5.
 
@@ -406,35 +406,52 @@ def _k4_inputs(rays, lanes, seed):
     return z, sdf, beta, torch.tensor([2.1e-3], device="cuda")
 
 
+@pytest.fixture(scope="module")
+def k4_first_port(setup):
+    """The library of K4's first port: the tree's source with every
+    bisection step run, also once the beta0 check has passed."""
+    from neat_tpu_torch.tools import fused_round_variants as V
+
+    return V.build(["first_port"])["first_port"]
+
+
 @pytest.mark.parametrize("refine", [True, False])
 @pytest.mark.parametrize("lanes", [128, 256, 384, 512, 640, 1024])  # the sampler's five widths and the widest
-def test_k4_kernel_matches_plain(setup, lanes, refine):
-    """The wrapper's kernel and the first port's against the plain
-    version."""
+def test_k4_kernel_matches_plain(setup, k4_first_port, lanes, refine):
+    """The wrapper's kernel and the first port against the plain version."""
+    from neat_tpu_torch.tools import fused_round_variants as V
+
     rays = 256
-    z, sdf, beta, beta0 = _k4_inputs(rays, lanes, seed=lanes + int(refine))
+    # at 384 samples the inputs the kernel has been held to since it was ported
+    z, sdf, beta, beta0 = _k4_inputs(rays, lanes, seed=int(refine) if lanes == 384 else lanes + int(refine))
     args = (0.1, 10, 0.0, refine)
     bp, wp, pp = R.fused_round_plain(z, sdf, beta, beta0[0], *args)
-    outs = {v: R.fused_round_kernel_variant(z, sdf, beta, beta0, *args, variant=v) for v in ("warp", "block")}
-    outs["route"] = R.fused_round_kernel(z, sdf, beta, beta0, *args)
-    for bk, wk, pk in outs.values():
+    outs = [R.fused_round_kernel(z, sdf, beta, beta0, *args), V.launch(k4_first_port, z, sdf, beta, beta0, *args)]
+    for bk, wk, pk in outs:
         keep = (bk - bp).abs() <= 2e-4 * bp.abs()
         assert int((~keep).sum()) <= 0.005 * rays
         assert torch.allclose(wk[keep], wp[keep], rtol=2e-4, atol=2e-5)
         assert torch.allclose(pk[keep], pp[keep], rtol=2e-4, atol=2e-5, equal_nan=True)
         assert bool((pk[:, -1] == 0).all()) and (refine or bool((pk == 0).all()))
-    assert all(torch.equal(a, b) for a, b in zip(outs["route"], outs["warp"]))
 
 
-def test_k4_warp_kernel_takes_any_number_of_rays(setup):
-    """A block holds four rays; a ray's result does not depend on the rays
-    beside it, so any leading rows of a batch give those rows' results."""
-    z, sdf, beta, beta0 = _k4_inputs(256, 384, seed=5)
-    args = (0.1, 10, 0.0, True)
-    full = R.fused_round_kernel(z, sdf, beta, beta0, *args)
-    for rays in (1, 3, 5, 130):
-        part = R.fused_round_kernel(z[:rays], sdf[:rays], beta[:rays], beta0, *args)
-        assert all(torch.equal(a, b[:rays]) for a, b in zip(part, full))
+@pytest.mark.parametrize("refine", [True, False])
+def test_k4_exit_keeps_the_first_ports_bits(setup, k4_first_port, refine):
+    """A ray whose beta0 check passes skips the bisection, whose every step
+    would keep beta0: the kernel gives the first port's values, on rays that
+    pass and on rays that do not (NaN where it has NaN: with refine, the far
+    rays' pdf is 0 / 0, as in the plain version)."""
+    from neat_tpu_torch.tools import fused_round_variants as V
+
+    z, sdf, beta, beta0 = _k4_inputs(256, 384, seed=7)
+    sdf[:64] = sdf[:64].abs() + 5.0  # far from any surface
+    passed = R.passed_check(z, sdf, beta0[0], 0.1)
+    assert bool(passed[:64].all()) and not bool(passed.all())
+    args = (0.1, 10, 0.0, refine)
+    got = R.fused_round_kernel(z, sdf, beta, beta0, *args)
+    old = V.launch(k4_first_port, z, sdf, beta, beta0, *args)
+    for a, b in zip(got, old):
+        assert bool((a == b).logical_or(a.isnan() & b.isnan()).all())
 
 
 @pytest.mark.parametrize(

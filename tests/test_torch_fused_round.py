@@ -9,9 +9,10 @@ neat_tpu.
   ``torch.cumsum``, so an ``err <= eps`` decision within an ulp of the knife
   edge may flip (none does on this data).
 * the same with the CUDA kernel's order of summation put into the plain
-  version (each lane's samples in turn, a Hillis-Steele scan over the
-  warp's 32 lanes, the lane's samples again; the pdf's sum a lane's
-  samples, then five xor steps) at the five widths the sampler hands the
+  version (each thread's samples in turn, a Hillis-Steele scan over each
+  warp's 32 lanes, the earlier warps' totals in turn, the thread's samples
+  again; the pdf's sum a thread's samples, five xor steps in the warp, then
+  the four warps' sums pairwise) at the five widths the sampler hands the
   kernel, each with the ``refine`` it runs with: rays whose beta differs by
   more than 2e-4 relative (one flipped decision) may be 0.5% of the rays,
   the others hold to rtol 2e-4 / atol 2e-5, ``chip_smoke.py``'s ``K4_*``
@@ -83,10 +84,10 @@ def test_round_plain_matches_interpret_kernel(refine):
         assert np.all(n(pt) == 0.0)
 
 
-def _warp_lanes(a):
-    """(R, S) -> (R, 32, S / 32): lane l of the ray's warp holds samples
-    l * S / 32 ... (l + 1) * S / 32 - 1."""
-    return a.reshape(a.shape[0], 32, -1)
+def _block_lanes(a):
+    """(R, S) -> (R, 4, 32, S / 128): lane l of warp w of the ray's 128-thread
+    block holds samples t * S / 128 ... (t + 1) * S / 128 - 1, t = 32 w + l."""
+    return a.reshape(a.shape[0], 4, 32, -1)
 
 
 def _lane_totals(x):
@@ -96,17 +97,22 @@ def _lane_totals(x):
     return tot
 
 
-def _warp_prefix(a, inclusive):
-    """Prefix sums along each row in the warp kernel's order: each lane's
-    samples in turn, a Hillis-Steele scan of the lane totals over the 32
-    lanes, one lane down, then the lane's samples again from there."""
-    x = _warp_lanes(a)
+def _block_prefix(a, inclusive):
+    """Prefix sums along each row in the kernel's order: each thread's
+    samples in turn, a Hillis-Steele scan of the thread totals over each
+    warp's 32 lanes, one lane down, the earlier warps' totals added in turn
+    in front of it, then the thread's samples again from there."""
+    x = _block_lanes(a)
     tot = _lane_totals(x)
     lane = torch.arange(32)
     for o in (1, 2, 4, 8, 16):
-        shifted = torch.cat([torch.zeros_like(tot[:, :o]), tot[:, :-o]], dim=1)
+        shifted = torch.cat([torch.zeros_like(tot[..., :o]), tot[..., :-o]], dim=-1)
         tot = torch.where(lane >= o, tot + shifted, tot)
-    run = torch.cat([torch.zeros_like(tot[:, :1]), tot[:, :-1]], dim=1)
+    in_warp = torch.cat([torch.zeros_like(tot[..., :1]), tot[..., :-1]], dim=-1)
+    before = [torch.zeros_like(tot[:, 0, 0])]
+    for w in range(3):
+        before.append(before[-1] + tot[:, w, 31])
+    run = torch.stack(before, dim=1)[..., None] + in_warp
     out = []
     for k in range(x.shape[-1]):
         if not inclusive:
@@ -117,14 +123,15 @@ def _warp_prefix(a, inclusive):
     return torch.stack(out, dim=-1).reshape(a.shape)
 
 
-def _warp_row_sum(a):
-    """Each row's sum in the warp kernel's order: a lane's samples, then five
-    xor-shuffle steps."""
-    tot = _lane_totals(_warp_lanes(a))
+def _block_row_sum(a):
+    """Each row's sum in the kernel's order: a thread's samples, five
+    xor-shuffle steps in each warp, then the warps' sums (0 + 1) + (2 + 3)."""
+    tot = _lane_totals(_block_lanes(a))
     lane = torch.arange(32)
     for o in (16, 8, 4, 2, 1):
-        tot = tot + tot[:, lane ^ o]
-    return tot[:, :1]
+        tot = tot + tot[..., lane ^ o]
+    w = tot[..., 0]
+    return ((w[:, 0] + w[:, 1]) + (w[:, 2] + w[:, 3]))[:, None]
 
 
 # chip_smoke.py's K4 limits: a flipped decision moves beta by more than this
@@ -134,9 +141,9 @@ K4_BETA_RTOL, K4_RTOL, K4_ATOL, K4_MAX_FLIPPED = 2e-4, 2e-4, 2e-5, 0.005
 @pytest.mark.parametrize("lanes", [128, 256, 384, 512, 640])
 def test_round_in_the_warp_kernels_order_matches_interpret_kernel(monkeypatch, lanes):
     refine = lanes < 640  # the sampler's last round, at 640, draws nothing
-    monkeypatch.setattr(tfr, "_cumsum_incl", lambda a: _warp_prefix(a, True))
-    monkeypatch.setattr(tfr, "_cumsum_excl", lambda a: _warp_prefix(a, False))
-    monkeypatch.setattr(tfr, "_row_sum", _warp_row_sum)
+    monkeypatch.setattr(tfr, "_cumsum_incl", lambda a: _block_prefix(a, True))
+    monkeypatch.setattr(tfr, "_cumsum_excl", lambda a: _block_prefix(a, False))
+    monkeypatch.setattr(tfr, "_row_sum", _block_row_sum)
     z, sdf, beta = _round_data(s=lanes, seed=lanes)
     beta0 = np.float32(2e-3 + 1e-4)
     bj, wj, pj = (np.asarray(a) for a in jfr.fused_sampler_round(
@@ -154,7 +161,7 @@ def test_round_in_the_warp_kernels_order_matches_interpret_kernel(monkeypatch, l
     assert np.all(pt[:, -1] == 0.0) and (refine or np.all(pt == 0.0))
     # the emulated order is not cumsum's: on this row the two round apart
     x = t(wj[:1])
-    assert not torch.equal(_warp_prefix(x, True), torch.cumsum(x, dim=-1))
+    assert not torch.equal(_block_prefix(x, True), torch.cumsum(x, dim=-1))
 
 
 def test_round_sfu_count():
@@ -185,8 +192,6 @@ def test_round_wrapper_checks_its_inputs():
         tfr.fused_round_kernel(z, sdf, beta, beta0.reshape(1), refine=True, **ROUND)
     with pytest.raises(ValueError):  # not a multiple of 128 samples
         tfr.fused_sampler_round(z[:, :100], sdf[:, :100], beta, beta0, refine=True, **ROUND)
-    with pytest.raises(ValueError):  # no such variant
-        tfr.fused_round_kernel_variant(z, sdf, beta, beta0.reshape(1), refine=True, variant="spec", **ROUND)
     assert tfr.fused_round_kernel.launches == 0
 
 
