@@ -12,6 +12,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only k3b # build K3-bwd's sources (+ the scalar K3); the bf16 K3-bwd's checks and timings
     python3 chip_smoke.py --only runner # build the main path's sources; the runner phase (7. below) alone
     python3 chip_smoke.py --only k4 # build fused_round.cu (+ K1 for the sampler run); K4's checks and timings
+    python3 chip_smoke.py --only finalize # build fused_sdf.cu and fused_field.cu; a 1-epoch rundir, then 8. below
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -86,6 +87,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    every packed view must have support pixels. It prints the scene's
    generation and load seconds, the native encodels build and run time,
    and the median ms/step and rays/s of the steps after each run's first.
+8. what comes after training, on the resumed run's rundir, through the
+   port's CLIs in this process (scripts/run-abc-toy.sh's order):
+   neat_tpu_torch.wireframe.finalize.main (--vote-ratio 0.2, all 8 views,
+   the support pixels in chunks of 2048 rays), evaluation.eval_abc.main on
+   its -neat.pkl, evaluation.render_eval.main --views 0 (262,144 rays in
+   256 chunks, the mesh at resolution 100). Every CLI's launches counted:
+   each chunk's eval forward runs the f32 K1 5 times and the f32 K3-fwd
+   once and nothing else, the mesh grid the f32 K1 once a 65,536-point
+   chunk. Every output file exists and every array in it is finite. Then
+   view_field_lines of views 0 and 1 on the kernels, on the plain versions
+   in f32 and in f64: the two f32 routes against each other (rays whose z
+   values moved, the error on the rest: printed) and each against f64 (on
+   z, lines3d, lines2d and l3d the kernels' rays more than 1e-4 off are at
+   most the plain f32 route's plus 0.5% of the rays, the median ray within
+   1e-4; rays/s of each route), the mesh grid's SDF on both
+   routes (K1 f32 within TOL, the vertex counts of both), and the f32 K1
+   and K3-fwd on the inputs the pipeline handed them, each against its
+   plain version and timed by the profiler's device-side events beside
+   the plain version, the library route and the bound. It prints the
+   seconds of finalize (the distillation and the rest), of the rendered
+   view and of the mesh, and the junction, line and eval_abc numbers,
+   which it does not hold to anything (16 training steps).
 
 It prints ms/step and rays/s, the card line and one ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``. Details go to
@@ -1742,11 +1765,437 @@ def runner_phase(profile_path=None):
         one()  # warm-up outside the window
         rec["profile"] = profile_calls("runner", one, 3, profile_path)
         r.close()
+    require(os.path.exists(os.path.join(resumed["rundir"], "checkpoints", "latest.ckpt")),
+            "runner: the resumed run wrote no checkpoints/latest.ckpt")
+    rec.update(rundir=resumed["rundir"], data_root=data_root)
     rec.update(load_s=[first["load_s"], resumed["load_s"]], support=first["support"],
                losses=[s["loss"] for s in steps], median_ms=med, q1_ms=q1, q3_ms=q3, n_timed=len(ms),
                rays_per_sec=cfg.num_pixels / (med / 1e3),
                launches_per_step=steps[0]["launches"], step_ms=[s["ms"] for s in steps])
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the finalize phase: what comes after training, on the runner's rundir
+# ---------------------------------------------------------------------------
+
+# the finalize pipeline's chunks: finalize's view_field_lines, render eval's
+# render_view, the mesh grid (the CLIs' defaults)
+FIN_CHUNK, RENDER_CHUNK, MESH_CHUNK, MESH_RES = 2048, 1024, 65536, 100
+# views whose view_field_lines runs on the kernels, on the plain versions
+# in f32 and on the plain versions in f64 (the reference)
+FIN_COMPARE_VIEWS = (0, 1)
+# A ray whose z values moved by more than FIN_Z_FLIP of the largest z
+# between the two f32 routes had a sampler decision or an ill-conditioned
+# inverse-CDF sample move; every other ray is held within FIN_TOL of each
+# output's largest entry. Both counts are printed. What is required: on z,
+# lines3d, lines2d and l3d, the share of rays more than FIN_TOL off the f64
+# reference is on the kernels at most the plain f32 route's share plus
+# FIN_MAX_FLIPPED (f32 in any summation order moves some rays: the inverse
+# CDF in a near-empty bin, l3d's division by the tangent plane's d . n on a
+# grazing ray), and the median ray is within FIN_TOL of it.
+FIN_Z_FLIP, FIN_MAX_FLIPPED, FIN_TOL = 1e-4, 0.005, 1e-4
+FIN_OUTPUTS = ("z", "lines3d", "lines2d", "l3d")
+
+
+class Recorder:
+    """Within ``with``: every launch through module.name (a kernel
+    wrapper's launch helper, so the wrapper's own count stays as it is)
+    goes through; ``key(args)`` gives (points, dtype, inputs to keep), and
+    the inputs of the first launch of each size are kept in ``seen``, the
+    dtypes in ``dtypes``."""
+
+    def __init__(self, module, name, key):
+        self.module, self.name, self.key, self.seen, self.dtypes = module, name, key, {}, set()
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.module, self.name)
+
+        def wrapped(*args):
+            n, dtype, keep = self.key(args)
+            self.dtypes.add(str(dtype))
+            if n not in self.seen:
+                self.seen[n] = _clone(keep)
+            return orig(*args)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _clone(args):
+    import torch
+
+    if isinstance(args, torch.Tensor):
+        return args.detach().clone()
+    if isinstance(args, (tuple, list)):
+        return type(args)(_clone(a) for a in args)
+    return args
+
+
+def _launched(fns, before):
+    return {k: f.launches - before[k] for k, f in fns.items()}
+
+
+def field_lines_routes(model, cfg, scene, view):
+    """view_field_lines of one view on the f32 kernels, on the plain
+    versions in f32 and on the plain versions in f64 (a copy of the model
+    in f64), each timed (host clock, ending in its host copies), with the
+    per-ray z values the chunks' forwards returned."""
+    import copy
+
+    import torch
+
+    import neat_tpu_torch.wireframe.finalize as F
+
+    out = {}
+    orig = F.neat_forward
+    for route, m, kernels in (("kernel", model, True), ("plain", model, False),
+                              ("f64", copy.deepcopy(model).double(), False)):
+        zs = []
+
+        def rec(*a, **k):
+            res = orig(*a, **k)
+            zs.append(res["z_vals"])
+            return res
+
+        F.neat_forward = rec
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            l3, l2, lp, _ = F.view_field_lines(m, cfg, scene, view, FIN_CHUNK, kernels=kernels)
+            secs = time.perf_counter() - t0
+        finally:
+            F.neat_forward = orig
+        n = l3.shape[0]
+        out[route] = {"lines3d": torch.from_numpy(l3), "lines2d": torch.from_numpy(l2), "l3d": torch.from_numpy(lp),
+                      "z": torch.cat(zs)[:n].cpu(), "s": secs, "rays": n}
+    return out
+
+
+def _ray_err(a, b):
+    """Per ray: max |a - b| over the ray's entries / max |b| over all."""
+    a, b = a.reshape(a.shape[0], -1).double(), b.reshape(b.shape[0], -1).double()
+    return (a - b).abs().amax(dim=1) / max(float(b.abs().max()), 1e-12)
+
+
+def compare_field_lines(routes, view):
+    """The two f32 routes of one view against each other (flipped rays and
+    the error on the rest, printed) and against the f64 reference (the
+    requirement, FIN_OUTPUTS' comment); what fails goes to
+    rec["failures"], which the caller requires empty once every check has
+    printed."""
+    import torch
+
+    k, p, r = routes["kernel"], routes["plain"], routes["f64"]
+    n = k["rays"]
+    rec = {"view": view, "rays": n, "kernel_rays_per_s": n / k["s"], "plain_rays_per_s": n / p["s"],
+           "f64_rays_per_s": n / r["s"], "failures": []}
+    if not (n == p["rays"] == r["rays"] and n > 0):
+        rec["failures"].append(f"finalize view {view}: {n} rays on the kernels, {p['rays']} plain, {r['rays']} f64")
+        return rec
+    for key in FIN_OUTPUTS:
+        if not bool(k[key].isfinite().all()):
+            rec["failures"].append(f"finalize view {view}: non-finite {key} on the kernels")
+    # the two f32 routes against each other
+    dz = _ray_err(k["z"], p["z"])
+    flipped = dz > FIN_Z_FLIP
+    keep = ~flipped
+    rec["flipped_rays"] = int(flipped.sum())
+    rec["dz_quantiles"] = [float(q) for q in torch.quantile(dz, torch.tensor([0.5, 0.99, 1.0], dtype=torch.float64))]
+    rec["err"] = {key: float(_ray_err(k[key], p[key])[keep].max()) if bool(keep.any()) else 0.0
+                  for key in FIN_OUTPUTS[1:]}
+    # each against the f64 reference
+    rec["off_f64"], rec["median_f64"] = {}, {}
+    for key in FIN_OUTPUTS:
+        ek, ep = _ray_err(k[key], r[key]), _ray_err(p[key], r[key])
+        rec["off_f64"][key] = (int((ek > FIN_TOL).sum()), int((ep > FIN_TOL).sum()))
+        rec["median_f64"][key] = (float(ek.median()), float(ep.median()))
+        if rec["off_f64"][key][0] > rec["off_f64"][key][1] + FIN_MAX_FLIPPED * n:
+            rec["failures"].append(f"finalize view {view}: {key} off the f64 route by > {FIN_TOL} on "
+                                   f"{rec['off_f64'][key][0]} rays on the kernels, {rec['off_f64'][key][1]} plain")
+        if rec["median_f64"][key][0] > FIN_TOL:
+            rec["failures"].append(f"finalize view {view}: the median ray's {key} is "
+                                   f"{rec['median_f64'][key][0]:.3g} off the f64 route")
+    return rec
+
+
+def time_eval_kernels(k1_inputs, k3_inputs, model, cfg):
+    """The f32 K1 and K3-fwd on the inputs the pipeline handed them (one
+    chunk of each shape): each against its plain version, its device time
+    from the profiler's events (10 launches, one shape a profiler window),
+    the plain version's and the library route's time (CUDA events), and
+    the bound."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from neat_tpu_torch.fields.mlp import _softplus100
+    from neat_tpu_torch.ops import fused_field as F
+    from neat_tpu_torch.ops.fused_sdf import CANONICAL_SHAPES, fused_sdf_kernel, fused_sdf_plain
+
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    calls, recs = {}, {}
+    with torch.no_grad():
+        for n, (emb, ws, bs) in sorted(k1_inputs.items()):
+            got, ref = fused_sdf_kernel(emb, ws, bs), fused_sdf_plain(emb, ws, bs)
+            wl = [w.T.contiguous() for w in ws]
+
+            def lib(emb=emb, wl=wl, bs=bs):
+                h = emb
+                for l in range(4):
+                    h = _softplus100(Fn.linear(h, wl[l], bs[l]))
+                h = torch.cat([h, emb], dim=-1) * (1.0 / math.sqrt(2.0))
+                for l in range(4, 8):
+                    h = _softplus100(Fn.linear(h, wl[l], bs[l]))
+                return Fn.linear(h, wl[8], bs[8])
+
+            b_ms, b_by = bound_ms(k1_macs_per_point() * n, n * (39 * 4 + 4) + weight_bytes(CANONICAL_SHAPES, 4),
+                                  "float32")
+            recs[f"k1/{n}"] = {"kernel": "K1", "n": n, "err": rel_err(got, ref),
+                               "max_abs_err": float((got - ref).abs().max()),
+                               "plain_ms": time_ms(lambda: fused_sdf_plain(emb, ws, bs), 6),
+                               "library_ms": time_ms(lib, 6), "bound_ms": b_ms, "bound_by": b_by}
+            calls[f"k1/{n}"] = (lambda emb=emb, ws=ws, bs=bs: fused_sdf_kernel(emb, ws, bs), "fused_sdf_kernel<float>")
+        for n, (flat, x, d, _, cd) in sorted(k3_inputs.items()):
+            got, ref = F.field_fwd_kernel(flat, x, d, icfg, cd), F.field_math(flat, x, d, icfg, rcfg, cd)
+            with torch.enable_grad():
+                lib = library_fwd(model, cfg, x.clone().requires_grad_(True), d.clone().requires_grad_(True), None)
+                lib_ms = time_ms(lib, 4)
+            b_ms, b_by = bound_ms(k2_macs_per_point()[0] * n, fwd_bytes(n, "k3", 4), "float32")
+            recs[f"k3/{n}"] = {"kernel": "K3-fwd", "n": n, "err": max(rel_err(a, b) for a, b in zip(got, ref)),
+                               "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+                               "plain_ms": time_ms(lambda: F.field_math(flat, x, d, icfg, rcfg, cd), 4),
+                               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+            calls[f"k3/{n}"] = (lambda flat=flat, x=x, d=d, cd=cd: F.field_fwd_kernel(flat, x, d, icfg, cd),
+                                "field_fwd_kernel<float>")
+        # the profiler tells the kernels apart by name only: one size a window
+        dev = {key: device_ms_in_turns({key: call}, 10)[key] for key, call in calls.items()}
+    for key, r in recs.items():
+        r["ms"], r["seen"] = dev[key]
+        r["share"] = r["bound_ms"] / r["ms"]
+        require(r["err"] <= TOL["float32"], f"{r['kernel']} f32 n={r['n']}: err {r['err']:.3g} > {TOL['float32']}")
+    return recs
+
+
+def finalize_phase(rundir, data_root):
+    """What a user runs after training (scripts/run-abc-toy.sh), through the
+    port's CLIs in this process on the runner's rundir: finalize (all views,
+    --vote-ratio 0.2), eval_abc on its -neat.pkl, render eval of view 0 and
+    the mesh. Every launch counted per CLI: each field evaluation runs the
+    f32 K1 (5 launches a chunk) and the f32 K3-fwd (1), nothing else; the
+    mesh grid K1 alone. Then view_field_lines of two views on both routes,
+    the mesh grid's SDF on both, and the two kernels timed at the shapes
+    the pipeline gave them."""
+    import glob
+    import pickle
+
+    import numpy as np
+    import torch
+
+    import neat_tpu_torch.evaluation.render_eval as RE
+    import neat_tpu_torch.wireframe.finalize as F
+    from neat_tpu_torch.data.datasets import load_scene_for_config
+    from neat_tpu_torch.evaluation import eval_abc as EA
+    from neat_tpu_torch.ops import fused_field, fused_sdf
+    from neat_tpu_torch.train.checkpoint import load_model
+    from neat_tpu_torch.train.config import load_experiment_config
+    from neat_tpu_torch.viz.mesh import load_ply, sdf_to_mesh
+
+    conf = os.path.join(rundir, "runconf.conf")
+    cfg = load_experiment_config(conf)
+    rounds = cfg.model.sampler.max_total_iters
+    fns = counters()
+    rec = {"rundir": rundir}
+    timers = {}
+
+    def timed(module, name):
+        orig = getattr(module, name)
+
+        def wrapped(*a, **k):
+            before = {k2: f.launches for k2, f in fns.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(*a, **k)
+            torch.cuda.synchronize()
+            timers[name] = {"s": time.perf_counter() - t0, "launches": _launched(fns, before)}
+            return res
+
+        setattr(module, name, wrapped)
+        return orig
+
+    # fused_sdf._launch(emb, ws, bs, variant); fused_field._fwd_launch(flat_eff, x, d, icfg, cd, variant)
+    k1_key = lambda a: (a[0].shape[0], a[0].dtype, a[:3])
+    k3_key = lambda a: (a[1].shape[0], a[4], a[:5])
+    scene = load_scene_for_config(cfg, data_root, distance_threshold=1.0)
+    chunks = sum(-(-int(m.sum()) // FIN_CHUNK) for m in scene.mask)
+    rec["support"] = [int(m.sum()) for m in scene.mask]
+    origs = {"distill_views": timed(F, "distill_views"), "render_views_psnr": timed(RE, "render_views_psnr"),
+             "export_scene_mesh": timed(RE, "export_scene_mesh")}
+    try:
+        with Recorder(fused_sdf, "_launch", k1_key) as k1, Recorder(fused_field, "_fwd_launch", k3_key) as k3:
+            for f in fns.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = F.main(["--conf", conf, "--checkpoint", "latest", "--vote-ratio", "0.2",
+                              "--data_root", data_root])
+            rec["finalize_s"] = time.perf_counter() - t0
+            rec["finalize_launches"] = {k: f.launches for k, f in fns.items()}
+            pkls = sorted(glob.glob(os.path.join(rundir, "wireframes", "*-neat.pkl")), key=os.path.getmtime)
+            require(len(pkls) == 1, f"finalize: {len(pkls)} -neat.pkl files")
+            rec["eval_abc"] = EA.main(["--data", pkls[0], "--scan", os.path.join(data_root, RUNNER_SCENE)])
+            for f in fns.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            rec["render_eval"] = RE.main(["--conf", conf, "--checkpoint", "latest", "--data_root", data_root,
+                                          "--views", "0"])
+            rec["render_eval_s"] = time.perf_counter() - t0
+        rec["k1_dtypes"], rec["k3_dtypes"] = sorted(k1.dtypes), sorted(k3.dtypes)
+    finally:
+        for name, orig in origs.items():
+            setattr(F if name == "distill_views" else RE, name, orig)
+    rec["distill_s"] = timers["distill_views"]["s"]
+    rec["assemble_s"] = rec["finalize_s"] - rec["distill_s"]
+    rec["render_s"], rec["mesh_s"] = timers["render_views_psnr"]["s"], timers["export_scene_mesh"]["s"]
+    rec["render_launches"] = timers["render_views_psnr"]["launches"]
+    rec["mesh_launches"] = timers["export_scene_mesh"]["launches"]
+    rec["chunks"] = chunks
+    h, w = cfg.img_res
+    render_chunks = -(-h * w // RENDER_CHUNK)
+    mesh_chunks = -(-MESH_RES ** 3 // MESH_CHUNK)
+    expect = lambda **kw: dict.fromkeys(fns, 0) | kw
+    for what, got, want in (
+        ("finalize", rec["finalize_launches"], expect(fused_sdf=rounds * chunks, field_fwd=chunks)),
+        ("render", rec["render_launches"], expect(fused_sdf=rounds * render_chunks, field_fwd=render_chunks)),
+        ("mesh", rec["mesh_launches"], expect(fused_sdf=mesh_chunks)),
+    ):
+        require(got == want, f"{what} launched {got}, expected {want}")
+    require(rec["k1_dtypes"] == ["torch.float32"] and rec["k3_dtypes"] == ["torch.float32"],
+            f"the pipeline's kernels ran in {rec['k1_dtypes']} / {rec['k3_dtypes']}, not f32")
+
+    # every output there and finite
+    wdir = os.path.join(rundir, "wireframes")
+    base = pkls[0][: -len("-neat.pkl")]
+    for suffix in ("all.npz", "wfi.npz", "wfi_checked.npz", "neat.pkl"):
+        require(os.path.exists(f"{base}-{suffix}"), f"finalize: no {base}-{suffix}")
+    require(len(glob.glob(os.path.join(wdir, "*-distill.pkl"))) == 1, "finalize: no -distill.pkl")
+    arrays = {f"{k}": v for k, v in results.items() if isinstance(v, np.ndarray)}
+    for path in glob.glob(os.path.join(wdir, "*.npz")):
+        with np.load(path) as z:
+            arrays.update({f"{os.path.basename(path)}:{k}": z[k] for k in z.files})
+    with open(glob.glob(os.path.join(wdir, "*-distill.pkl"))[0], "rb") as f:
+        arrays.update({f"distill:{k}": v for k, v in pickle.load(f).items()})
+    for key, a in arrays.items():
+        require(bool(np.isfinite(a).all()), f"finalize: non-finite {key}")
+    ev = os.path.join(rundir, "evaluation")
+    epoch = rec["render_eval"]["epoch"]
+    for name in ("psnr.csv", "eval_000.png", "normal_000.png", f"surface_{epoch}.ply"):
+        require(os.path.exists(os.path.join(ev, name)), f"render eval: no evaluation/{name}")
+    verts, faces = load_ply(os.path.join(ev, f"surface_{epoch}.ply"))
+    require(bool(np.isfinite(verts).all()), "render eval: non-finite mesh vertices")
+    require(math.isfinite(rec["render_eval"]["psnr_mean"]), "render eval: non-finite PSNR")
+    rec.update(mesh_verts=len(verts), mesh_faces=len(faces), junctions=int(results["junctions3d_initial"].shape[0]),
+               lines_all=int(results["lines3d_all"].shape[0]), lines_wfi=int(results["lines3d_wfi"].shape[0]),
+               lines_wfi_checked=int(results["lines3d_wfi_checked"].shape[0]))
+
+    # kernel route against plain route
+    model, _ = load_model(os.path.join(rundir, "checkpoints"), "latest", cfg.model, "cuda")
+    rec["compare"] = [compare_field_lines(field_lines_routes(model, cfg.model, scene, v), v) for v in FIN_COMPARE_VIEWS]
+    grids = {}
+    for route, kernels in (("kernel", True), ("plain", False)):
+        fn, vals = RE.grid_sdf_fn(model, cfg.model, kernels), []
+
+        def keep(p, fn=fn, vals=vals):
+            vals.append(fn(p))
+            return vals[-1]
+
+        v, _ = sdf_to_mesh(keep, resolution=MESH_RES, grid_boundary=cfg.grid_boundary, chunk=MESH_CHUNK)
+        grids[route] = (torch.from_numpy(np.concatenate(vals)), len(v))
+    rec["grid_err"] = rel_err(grids["kernel"][0], grids["plain"][0])
+    rec["grid_verts"] = {route: g[1] for route, g in grids.items()}
+    require(rec["grid_err"] <= TOL["float32"], f"mesh grid: K1 f32 err {rec['grid_err']:.3g} > {TOL['float32']}")
+    rec["kernels"] = time_eval_kernels(k1.seen, k3.seen, model, cfg.model)
+    print_finalize(rec, card_line())
+    fails = [f for c in rec["compare"] for f in c["failures"]]
+    require(not fails, "; ".join(fails))
+    return rec
+
+
+def finalize_rundir():
+    """--only finalize: a rundir of its own, abc-neat-a trained by the
+    runner for one epoch (8 steps) on the scene the runner phase generates,
+    on the plain field path, so that only K1's and K3's sources are built."""
+    import shutil
+
+    from neat_tpu_torch.data.synthetic import generate_scene
+    from neat_tpu_torch.train import runner as R
+    from neat_tpu_torch.train.config import load_experiment_config
+
+    work = os.path.join(OUT_DIR, "finalize")
+    shutil.rmtree(work, ignore_errors=True)
+    data_root = os.path.join(work, "data")
+    conf = os.path.join(REPO, RUNNER_CONF)
+    res = tuple(load_experiment_config(conf).img_res)
+    generate_scene(os.path.join(data_root, RUNNER_SCENE), n_views=RUNNER_VIEWS, res=res, seed=0)
+    r = R.main(["--conf", conf, "--data_root", data_root, "--exps_folder", os.path.join(work, "exps"),
+                "--nepoch", "0", "--field_path", "xla"])
+    return r.rundir, data_root
+
+
+def print_finalize(r, card: str) -> None:
+    print(f"finalize: {len(r['support'])} views, support pixels {r['support']} in {r['chunks']} chunks of "
+          f"{FIN_CHUNK} rays; {r['finalize_s']:.2f} s (distillation {r['distill_s']:.2f}, the rest "
+          f"{r['assemble_s']:.2f}); launches {r['finalize_launches']['fused_sdf']} K1 f32, "
+          f"{r['finalize_launches']['field_fwd']} K3-fwd f32, nothing else; {r['junctions']} junctions, "
+          f"{r['lines_all']} lines, {r['lines_wfi']} wfi, {r['lines_wfi_checked']} wfi_checked; {card}", flush=True)
+    e = r["eval_abc"]
+    print("eval_abc: junction P " + " ".join(f"{v:.3f}" for v in e["junction_precision"]) + " R "
+          + " ".join(f"{v:.3f}" for v in e["junction_recall"]) + "; line P "
+          + " ".join(f"{v:.3f}" for v in e["line_precision"]) + " R "
+          + " ".join(f"{v:.3f}" for v in e["line_recall"]) + f" at {e['thresholds']}", flush=True)
+    print(f"render eval: view 0 in {r['render_s']:.2f} s ({r['render_launches']['fused_sdf']} K1 f32, "
+          f"{r['render_launches']['field_fwd']} K3-fwd f32), PSNR {r['render_eval']['psnr_mean']:.3f}; mesh at "
+          f"{MESH_RES}^3 in {r['mesh_s']:.2f} s ({r['mesh_launches']['fused_sdf']} K1 f32), {r['mesh_verts']} "
+          f"vertices, {r['mesh_faces']} faces; the CLI {r['render_eval_s']:.2f} s; {card}", flush=True)
+    for c in r["compare"]:
+        if "err" not in c:
+            continue
+        print(f"finalize view {c['view']}, kernels against plain f32: {c['rays']} rays, {c['flipped_rays']} whose z "
+              f"moved by > {FIN_Z_FLIP} (z moves: median {c['dz_quantiles'][0]:.2e}, 99% {c['dz_quantiles'][1]:.2e}, "
+              f"max {c['dz_quantiles'][2]:.2e}); elsewhere err "
+              f"{json.dumps({k: float(f'{v:.3g}') for k, v in c['err'].items()})}. Against the f64 route, rays off by "
+              f"> {FIN_TOL} (kernels, plain f32) {json.dumps(c['off_f64'])}, median ray "
+              f"{json.dumps({k: [float(f'{x:.2e}') for x in v] for k, v in c['median_f64'].items()})}; "
+              f"{c['kernel_rays_per_s']:.1f} rays/s on the kernels, {c['plain_rays_per_s']:.1f} plain f32, "
+              f"{c['f64_rays_per_s']:.1f} f64", flush=True)
+    print(f"mesh grid, K1 f32 against plain: err {r['grid_err']:.3g}; vertices {r['grid_verts']['kernel']} on the "
+          f"kernel, {r['grid_verts']['plain']} plain", flush=True)
+    for key, k in r["kernels"].items():
+        print(f"{k['kernel']} f32 n={k['n']}: err {k['err']:.3g}, device {k['ms']:.3f} ms (the profiler saw "
+              f"{k['seen']} of 10), plain {k['plain_ms']:.3f}, library {k['library_ms']:.3f}; bound "
+              f"{k['bound_ms']:.3f} by {k['bound_by']} ({100 * k['share']:.1f}%); {card}", flush=True)
+
+
+def finalize_kernel_entries(fin):
+    """The kernels line's entries for the f32 K1 and K3-fwd at finalize's
+    chunk shape; launches are finalize's over all views, render eval's and
+    the mesh's beside them."""
+    src = "neat_tpu_torch/csrc/"
+    out = []
+    for name, key, prefix, file, replaces in (
+        ("fused_sdf_f32", "fused_sdf", "k1/", "fused_sdf.cu", "neat_tpu/ops/fused_sdf.py:66"),
+        ("field_fwd_f32", "field_fwd", "k3/", "fused_field.cu", "neat_tpu/ops/fused_field.py:210"),
+    ):
+        # finalize's chunk is the largest shape each kernel is handed
+        rec = max((r for k, r in fin["kernels"].items() if k.startswith(prefix)), key=lambda r: r["n"])
+        out.append(dict(
+            name=name, route="cuda", source=src + file, replaces=replaces, launches=fin["finalize_launches"][key],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"], n=rec["n"],
+            launches_render_view=fin["render_launches"][key], launches_mesh=fin["mesh_launches"][key]))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1758,7 +2207,7 @@ ONLY = {"k1": ("fused_sdf",), "k2": ("field_fwd_mma", "fused_field_stash"),
         "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash", "field_bwd_mma"),
         "k3b": ("field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field"),
         "runner": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma"),
-        "k4": ("fused_round", "fused_sdf")}
+        "k4": ("fused_round", "fused_sdf"), "finalize": ("fused_sdf", "fused_field")}
 
 
 def print_runner(r, card: str) -> None:
@@ -1840,6 +2289,8 @@ def main() -> int:
         elif args.only == "k4":
             report["k4"] = k4_phase(model, cfg, gen, args.quick)
             print_k4(report["k4"])
+        elif args.only == "finalize":
+            report["finalize"] = finalize_phase(*finalize_rundir())
         elif args.only == "k3b":
             report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k3b"]:
@@ -1941,6 +2392,7 @@ def main() -> int:
               f"mean {paths['z_mean_diff']:.3g}; plain step ms {paths['plain_step_ms']}", flush=True)
         report["runner"] = runner_phase(os.path.join(OUT_DIR, "profile_runner.txt") if args.profile else None)
         print_runner(report["runner"], card)
+        report["finalize"] = finalize_phase(report["runner"]["rundir"], report["runner"]["data_root"])
         t1, t3 = k1[0], k3[-1]
         src = "neat_tpu_torch/csrc/"
         kernels = [
@@ -2011,6 +2463,7 @@ def main() -> int:
             ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"), bound_by=max(by, key=by.get),
             library_ms=None, step_ms=len(k4_times) * mean("ms"),
             step_bound_ms=len(k4_times) * mean("bound_ms")))
+        kernels += finalize_kernel_entries(report["finalize"])
         report["kernels"] = kernels
     with open(out_path, "w") as f:
         json.dump(report, f, indent=1)

@@ -95,6 +95,13 @@ class SceneData:
     def total_pixels(self) -> int:
         return self.img_res[0] * self.img_res[1]
 
+    def uv_full(self) -> np.ndarray:
+        """(H*W, 2) full pixel grid in (x, y), matching the reference's
+        flipped mgrid (blender_hawp_dataset.py:149-151)."""
+        h, w = self.img_res
+        ys, xs = np.mgrid[0:h, 0:w]
+        return np.stack([xs, ys], axis=-1).reshape(-1, 2).astype(np.float32)
+
 
 def _pack_lines(lines_list: List[np.ndarray]):
     """Pad a per-view list of (L_i, 5) line arrays to (V, L_max, 5)."""

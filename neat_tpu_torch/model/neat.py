@@ -112,6 +112,45 @@ class NeatConfig:
         )
 
 
+def offline_eval_config(cfg: NeatConfig) -> NeatConfig:
+    """Exact-f32 variant for offline rendering / finalization: the same
+    fields as the JAX function sets (f32 sampler and field, both kernel
+    flags off), so a CPU run holds the meaning it has in the reference.
+
+    The JAX package turns its kernels off here because its K1 computes in
+    bf16 only, which shows as banding in full-image renders. This port has
+    f32 kernels for both functions the eval forward spends its time in (K1
+    f32, ``ops/fused_sdf.py``; K3-fwd f32, ``ops/fused_field.py``), so
+    ``eval_kernel_config`` turns the flags back on, still in f32, on the
+    card. On CPU tensors those wrappers run their plain versions."""
+    return dataclasses.replace(
+        cfg,
+        sampler_compute_dtype="float32",
+        field_compute_dtype="float32",
+        use_pallas_sampler=False,
+        use_pallas_field=False,
+    )
+
+
+def eval_kernel_config(cfg: NeatConfig, device) -> NeatConfig:
+    """``offline_eval_config`` with the f32 K1 and K3-fwd switched on where
+    ``device`` is a CUDA device and the architecture is the one the kernels
+    are written for (``supports_fused_sdf``, ``supports_fused_field``).
+    Elsewhere it is ``offline_eval_config``: the plain versions."""
+    from ..ops.fused_field import supports_fused_field
+    from ..ops.fused_sdf import supports_fused_sdf
+
+    cfg = offline_eval_config(cfg)
+    if torch.device(device).type != "cuda":
+        return cfg
+    return dataclasses.replace(
+        cfg,
+        use_pallas_sampler=supports_fused_sdf(cfg.implicit),
+        use_pallas_field=supports_fused_field(cfg.implicit, cfg.rendering, cfg.attraction),
+        pallas_field_backward="recompute",
+    )
+
+
 _UNPORTED = {
     "model_variant": "neat",
     "sampler_kind": "error_bound",
@@ -400,3 +439,8 @@ def _eikonal_gradients(model, cfg: NeatConfig, cam_loc, ray_dirs, z_eik, eik_uni
     eik_near = (cam_loc[:, None, :] + z_eik[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
     pts = torch.cat([eik_uniform, eik_near], dim=0)
     return implicit_gradient(model.implicit, pts, cfg.implicit)
+
+
+def render_rgb(model: NeatModel, inputs: Dict[str, torch.Tensor], cfg: NeatConfig) -> torch.Tensor:
+    """Eval-mode RGB-only rendering (reference render_rgb, rend_a:344-375)."""
+    return neat_forward(model, inputs, cfg, training=False)["rgb_values"]

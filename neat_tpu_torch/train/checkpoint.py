@@ -18,7 +18,8 @@ so a tool reads the export of either package.
 Every file is written atomically (a temporary file in the same directory,
 then ``os.replace``), so a kill mid-save leaves the earlier snapshot whole.
 ``load_checkpoint`` falls back from a truncated or missing ``latest.ckpt``
-to the newest epoch tag that loads.
+to the newest epoch tag that loads. ``load_model`` gives the snapshot's
+model for finalize and the evaluations, through the runner's restore path.
 """
 
 from __future__ import annotations
@@ -152,6 +153,24 @@ def load_checkpoint(ckpt_dir: str, tag: str = "latest") -> Tuple[Dict[str, Any],
         f"checkpoint {path} is corrupt ({first_err}) and no earlier "
         f"epoch tag in {ckpt_dir} loads cleanly"
     )
+
+
+def load_model(ckpt_dir: str, tag: str, cfg, device="cuda"):
+    """(model, epoch) of a snapshot for the tools that read a trained run
+    (finalize, render eval): ``init_neat`` of the model config ``cfg`` on
+    ``device``, the snapshot restored into it as the runner restores a
+    resume (``restore_state``), its parameters frozen. A CUDA device that
+    is not there raises, as the runner does."""
+    from ..model.neat import init_neat
+    from .step import init_train_state
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu (device='cpu') for the CPU")
+    host, epoch = load_checkpoint(ckpt_dir, tag)
+    state = init_train_state(init_neat(cfg, device=device))
+    restore_state(state, host)
+    return state.model.requires_grad_(False), epoch
 
 
 def sweep_checkpoint(expdir: str, checkpoint: str = "latest") -> Optional[str]:

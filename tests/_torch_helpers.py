@@ -5,6 +5,7 @@ the JAX parameter tree to the port through ``interop.params_from_jax`` as
 numpy arrays.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -97,3 +98,45 @@ def t(a, dtype=None):
 def n(x):
     """torch tensor -> numpy."""
     return x.detach().cpu().numpy()
+
+
+def spread_attraction(params, seed=20, bias=0.6, noise=0.05):
+    """A freshly initialized attraction head emits near-zero endpoint
+    offsets (zero-length lines, which no graph snapping accepts); spread
+    its output layer so the lines have real extent, as
+    tests/test_finalize_parity.py does. -> a new JAX parameter tree."""
+    rs = np.random.RandomState(seed)
+    att = dict(params["attraction"])
+    last = f"lin{len(att) - 1}"
+    out = dict(att[last])
+    out["b"] = out["b"] + rs.uniform(-bias, bias, size=np.asarray(out["b"]).shape).astype(np.float32)
+    out["v"] = out["v"] + rs.normal(0.0, noise, np.asarray(out["v"]).shape).astype(np.float32)
+    att[last] = out
+    return dict(params, attraction=att)
+
+
+@contextlib.contextmanager
+def jax_numpy_encodels():
+    """JAX's loaders on its numpy encodels, which the port's native one
+    equals bit for bit; its own native build fuses multiply-adds
+    (tests/test_torch_data.py)."""
+    import neat_tpu.data.encodels as jenc
+
+    build = jenc._build_native
+    jenc._build_native = lambda: None
+    try:
+        yield
+    finally:
+        jenc._build_native = build
+
+
+def disk_scenes(data_root, data_dir, res, distance_threshold=1.0, **kwargs):
+    """(JAX SceneData, port SceneData) of one scene on disk, each from its
+    own package's loader."""
+    import neat_tpu.data.datasets as jds
+    import neat_tpu_torch.data.datasets as tds
+
+    kw = dict(data_dir=data_dir, img_res=res, data_root=data_root, distance_threshold=distance_threshold, **kwargs)
+    with jax_numpy_encodels():
+        scene_j = jds.load_blender_scene(**kw)
+    return scene_j, tds.load_blender_scene(**kw)

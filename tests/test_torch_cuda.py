@@ -530,3 +530,90 @@ def test_runner_trains_and_resumes_exactly_on_the_card(setup, tmp_path):
     for part in ("params", "mu", "nu"):
         assert got[part].keys() == saved[part].keys()
         assert all(got[part][k].tobytes() == saved[part][k].tobytes() for k in saved[part])
+
+
+@pytest.fixture(scope="module")
+def eval_scene(tmp_path_factory):
+    """A generated 64 x 64, 2-view ABC scene at finalize's distance 1 and
+    the full-width model (random weights) in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from neat_tpu_torch.data.datasets import load_blender_scene
+    from neat_tpu_torch.data.synthetic import generate_scene
+    from neat_tpu_torch.model.neat import NeatConfig
+
+    root = tmp_path_factory.mktemp("eval")
+    generate_scene(str(root / "toy"), n_views=2, res=(64, 64), seed=0)
+    scene = load_blender_scene("toy", (64, 64), data_root=str(root), distance_threshold=1.0)
+    cfg = NeatConfig.for_abc()
+    return cfg, init_neat(cfg, seed=3, device="cuda").requires_grad_(False), scene
+
+
+def test_view_field_lines_on_the_f32_kernels_matches_plain(eval_scene):
+    """One chunk of finalize's field evaluation: 5 launches of the f32 K1
+    and 1 of the f32 K3-fwd, nothing else. The kernels' route, the plain
+    route in f32 and the plain route in f64 (the reference): on z, lines3d,
+    lines2d and l3d, the kernels' rays more than 1e-4 of the output's
+    largest entry off the reference are at most the plain f32 route's plus
+    0.5% of the rays or 3 (f32 in any summation order moves a few rays:
+    the inverse CDF in a near-empty bin, l3d's division on a grazing ray),
+    and the median ray is within 1e-4."""
+    import copy
+
+    import neat_tpu_torch.wireframe.finalize as FIN
+
+    cfg, model, scene = eval_scene
+    n = int(scene.mask[0].sum())
+    assert 0 < n <= 2048
+    zs = []
+    orig = FIN.neat_forward
+
+    def rec(*a, **k):
+        out = orig(*a, **k)
+        zs.append(out["z_vals"][:n].cpu())
+        return out
+
+    FIN.neat_forward = rec
+    try:
+        before = (fused_sdf_kernel.launches, F.field_fwd_kernel.launches, K.field_fwd_stash_kernel.launches)
+        routes = [FIN.view_field_lines(model, cfg, scene, 0, 2048)]
+        after = (fused_sdf_kernel.launches, F.field_fwd_kernel.launches, K.field_fwd_stash_kernel.launches)
+        routes.append(FIN.view_field_lines(model, cfg, scene, 0, 2048, kernels=False))
+        routes.append(FIN.view_field_lines(copy.deepcopy(model).double(), cfg, scene, 0, 2048, kernels=False))
+    finally:
+        FIN.neat_forward = orig
+    assert tuple(a - b for a, b in zip(after, before)) == (cfg.sampler.max_total_iters, 1, 0)
+    outs = [[z, *(torch.from_numpy(x) for x in r[:3])] for z, r in zip(zs, routes)]
+    for got, plain, ref in zip(*outs):
+        assert torch.isfinite(got).all()
+        err = lambda a: (a.reshape(n, -1).double() - ref.reshape(n, -1)).abs().amax(dim=1) / ref.abs().max()
+        ek, ep = err(got), err(plain)
+        assert int((ek > 1e-4).sum()) <= int((ep > 1e-4).sum()) + max(3, 0.005 * n)
+        assert float(ek.median()) <= 1e-4
+
+
+def test_render_chunk_and_mesh_grid_on_the_f32_kernels(eval_scene):
+    """render_view's chunks and the mesh grid: the f32 K1 and K3-fwd, each
+    chunk 5 + 1 launches, the grid 1 K1 launch a chunk; rgb, normal and
+    depth against the plain route: pixels more than 1e-4 of the output's
+    largest entry off (a sampler decision flipped on the ray) at most 0.5%
+    of the view; the grid's SDF within 1e-3 (f32, the K1 checks' limit)."""
+    import numpy as np
+
+    import neat_tpu_torch.evaluation.render_eval as RE
+
+    cfg, model, scene = eval_scene
+    before = (fused_sdf_kernel.launches, F.field_fwd_kernel.launches)
+    got = RE.render_view(model, cfg, scene, 1, chunksize=1024)
+    after = (fused_sdf_kernel.launches, F.field_fwd_kernel.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (4 * cfg.sampler.max_total_iters, 4)
+    want = RE.render_view(model, cfg, scene, 1, chunksize=1024, kernels=False)
+    for k in want:
+        assert np.isfinite(got[k]).all()
+        off = np.abs(got[k] - want[k]).reshape(64 * 64, -1).max(axis=1) > 1e-4 * np.abs(want[k]).max()
+        assert off.sum() <= 0.005 * off.size, (k, int(off.sum()))
+    pts = np.random.RandomState(0).uniform(-1.5, 1.5, (70000, 3)).astype(np.float32)
+    before = fused_sdf_kernel.launches
+    grid_k = RE.grid_sdf_fn(model, cfg)(pts)
+    assert fused_sdf_kernel.launches - before == 1
+    assert _err(torch.from_numpy(grid_k), torch.from_numpy(RE.grid_sdf_fn(model, cfg, kernels=False)(pts))) <= 1e-3

@@ -26,14 +26,28 @@ def _callback_assignment():
     tm.masked_assignment(torch.zeros((3, 4)), method="callback")
 
 
+def _finalize_mesh():
+    from neat_tpu_torch.wireframe.finalize import main
+
+    main(["--conf", "run/runconf.conf", "--mesh", "4"])
+
+
+def _render_eval_mesh():
+    from neat_tpu_torch.evaluation.render_eval import main
+
+    main(["--conf", "run/runconf.conf", "--mesh", "4"])
+
+
 @pytest.mark.parametrize(
     "call,item",
     [
         (_depth_loss, "ROADMAP.md §1, DTU path"),
         (_variant, "ROADMAP.md §1, variants"),
         (_callback_assignment, "ROADMAP.md §1, assignment `callback` mode"),
+        (_finalize_mesh, "ROADMAP.md §1, multi-GPU"),
+        (_render_eval_mesh, "ROADMAP.md §1, multi-GPU"),
     ],
-    ids=["depth_loss", "variant", "callback_assignment"],
+    ids=["depth_loss", "variant", "callback_assignment", "finalize_mesh", "render_eval_mesh"],
 )
 def test_unported_paths_raise_and_name_their_item(call, item):
     with pytest.raises(NotImplementedError) as err:
