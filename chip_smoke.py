@@ -5,14 +5,14 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py           # the whole check (one card)
     python3 chip_smoke.py --quick   # build + kernel checks at small shapes only
-    python3 chip_smoke.py --only k1 # build fused_sdf.cu alone; K1's checks and timings
+    python3 chip_smoke.py --only k1 # build fused_sdf.cu and fused_sdf_tf32.cu; K1's checks and timings
     python3 chip_smoke.py --only k2 # build field_fwd_mma.cu (+ the scalar K2); K2-fwd's checks and timings
-    python3 chip_smoke.py --only k3 # the same for K3-fwd (+ the scalar K3)
+    python3 chip_smoke.py --only k3 # the same for K3-fwd (+ the scalar K3), and the f32 K3-fwd (field_fwd_tf32.cu)
     python3 chip_smoke.py --only k2b # build field_bwd_mma.cu, field_dw_mma.cu, fused_field_stash.cu; the split K2-bwd's checks and timings
     python3 chip_smoke.py --only k3b # build K3-bwd's sources (+ the scalar K3); the bf16 K3-bwd's checks and timings
     python3 chip_smoke.py --only runner # build the main path's sources; the runner phase (7. below) alone
     python3 chip_smoke.py --only k4 # build fused_round.cu (+ K1 for the sampler run); K4's checks and timings
-    python3 chip_smoke.py --only finalize # build fused_sdf.cu and fused_field.cu; a 1-epoch rundir, then 8. below
+    python3 chip_smoke.py --only finalize # build K1's and K3's sources; a 1-epoch rundir, then 8. below
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -21,14 +21,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build the CUDA kernels from neat_tpu_torch/csrc with nvcc, timed;
 3. hold each kernel against its plain PyTorch version on the same inputs
    and time both, beside one PyTorch library route to the same function:
-   K1 (fused SDF) at the sampler's per-launch shape and at 1024 x 640
-   points, in bf16 and f32, and in bf16 at 1, 127, 129 and 1000 points,
-   beside the scalar kernel it replaced, its exact-softplus variant and
-   its mma.sync variant; the bf16 field forwards on the tensor cores,
+   K1 (fused SDF) in bf16 at the sampler's per-launch shape, at 1024 x 640
+   points and at 1, 127, 129 and 1000 points, beside the scalar kernel it
+   replaced, its exact-softplus variant and its mma.sync variant; K1 in
+   f32 (the 3xTF32 kernel of finalize, render eval and the mesh) at 1, 127,
+   129, 1000, a finalize chunk's 262,144 and 1024 x 640 points beside the
+   scalar kernel of the first port, each of them against the plain version
+   and, with it, against the plain version in f64 (the f64 criterion: the
+   kernel's max |err| at most 1.5x plain f32's, or 2^-20 of the largest
+   entry), timed in turns at 262,144 with both bounds (3xTF32 on the
+   tensor cores, f32 on the CUDA cores); the bf16 field forwards on the tensor cores,
    K2-fwd (every output and the stash; stash entries more than one bf16
    step off are counted) and K3-fwd (also against K2-fwd), beside the
    scalar kernels they replaced, at 1, 127, 129 and 1000 points and, timed
-   in turns with the library route, at the main path's 100,352; the split
+   in turns with the library route, at the main path's 100,352; the f32
+   K3-fwd of the no-grad route (3xTF32) beside its scalar variant at the
+   same sizes, against field_math in f32 and in f64 (the f64 criterion),
+   timed in turns at 100,352 with both bounds; the split
    bf16 K2-bwd (its row-local pass writes a workspace of weight-gradient
    operands, a tensor-core GEMM sums them) at 1, 127, 129, 1000, 4096,
    100,352 and 168,093 points (a workspace past 2^31 elements): with the
@@ -43,7 +52,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (dx, dd, all 38 parameter gradients) at 4096 points in f32 and bf16 and
    at the main path's 100,352 points in bf16; K3-fwd and K3-bwd (the
    recompute pair) at the same sizes, against field_math and its autograd
-   and against the K2 pair: in bf16 the split K3-bwd (chunks of 16,384
+   and against the K2 pair (in f32 the pair's forward is the scalar tile
+   K3-bwd re-runs, held to 1e-5 of field_math and to K2-fwd; the no-grad
+   route's 3xTF32 kernel beside it to TOL and the f64 criterion): in bf16
+   the split K3-bwd (chunks of 16,384
    points) against the model's K2-fwd + K2-bwd (dx and dd exactly,
    the gradients within 1e-4, the forward its chunks recomputed exactly
    K2-fwd's), its "scalar" variant against the scalar K2 pair, timed in
@@ -103,9 +115,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    most the plain f32 route's plus 0.5% of the rays, the median ray within
    1e-4; rays/s of each route), the mesh grid's SDF on both
    routes (K1 f32 within TOL, the vertex counts of both), and the f32 K1
-   and K3-fwd on the inputs the pipeline handed them, each against its
-   plain version and timed by the profiler's device-side events beside
-   the plain version, the library route and the bound. It prints the
+   and K3-fwd (the 3xTF32 kernels) on the inputs the pipeline handed them,
+   each against its plain version in f32 and, beside its scalar variant,
+   in f64 (the f64 criterion), and timed by the profiler's device-side
+   events in turns with the scalar variant, beside the plain version, the
+   library route and both bounds. It prints the
    seconds of finalize (the distillation and the rest), of the rendered
    view and of the mesh, and the junction, line and eval_abc numbers,
    which it does not hold to anything (16 training steps).
@@ -131,8 +145,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # reports too long for the console
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, f32 rate outside
-# the tensor cores, HBM3 bandwidth
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# the tensor cores, dense TF32 tensor-core rate, HBM3 bandwidth
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 # special-function operations a second (expf, IEEE division, sqrtf: one MUFU
 # each): 16 a clock on each SM (Hopper white paper: 4 SFUs in each of the
@@ -151,10 +165,27 @@ TOL = {"float32": 1e-3, "bfloat16": 3e-2}
 K1_VS_SCALAR, K1_ERR_FLOOR = 1.5, 2.0 ** -8
 # sizes that leave a 128-point tile ragged
 K1_RAGGED = (1, 127, 129, 1000)
-# the bf16 kernels held and timed beside the one the sampler runs
-K1_VARIANTS = {"scalar": "scalar kernel", "wgmma_exact": "exact softplus", "mma_sync": "mma.sync"}
-# K3 against field_math: the forward on the scale above, f32 held tighter
+# the kernels held and timed beside the one the sampler runs (bf16) and the
+# one finalize, render eval and the mesh run (f32: 3xTF32)
+K1_VARIANTS = {"bfloat16": {"scalar": "scalar kernel", "wgmma_exact": "exact softplus", "mma_sync": "mma.sync"},
+               "float32": {"scalar": "scalar kernel"}}
+# K3 against field_math: the forward on the scale above, f32 held tighter.
+# In f32 it holds the recompute pair's forward (the scalar tile, which the
+# f32 K3-bwd re-runs); the 3xTF32 kernel of the no-grad route sums in
+# another order, and on these weights no second f32 order stays within
+# 1e-5 of the plain version (PERF.md §6): it is held to TOL and to
+# the f64 criterion below.
 K3_FWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# The f32 kernels against the plain version in f64: each output's max |err|
+# at most F64_FACTOR x the plain f32 version's against the same f64, or
+# F64_FLOOR of the largest f64 entry (tests/test_torch_tf32.py holds the
+# design to the same on the CPU). A single point's f32 error is a matter of
+# chance at that floor's scale (plain f32 was 3e-8 off on one point where
+# the kernel was 5.6e-7 and the floor 3.7e-7), so it is held on 1,000
+# points or more: each size of at least F64_MIN_POINTS, and the ragged
+# sizes below it together (the union of their points: the largest error
+# and entry of any of them)
+F64_FACTOR, F64_FLOOR, F64_MIN_POINTS = 1.5, 2.0 ** -20, 1000
 # K3-bwd against autograd of field_math, as ||kernel - plain|| / ||plain|| of
 # each output and each of the 38 gradients. The backward re-runs the forward,
 # and a relu whose pre-activation an f32 sum in another order moves across 0
@@ -209,6 +240,37 @@ def bound_ms(macs: float, nbytes: float, dtype: str):
     ops_ms = 2.0 * macs / PEAK_OPS[dtype] * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def f32_bounds(macs: float, nbytes: float, rec: dict) -> None:
+    """The two bounds of an f32 kernel into rec: work of f32 accuracy as three
+    TF32 products on the tensor cores ("bound_ms", the lesser, which the
+    kernels line takes) or as f32 FMAs on the CUDA cores
+    ("cuda_core_bound_ms"), each against the bytes."""
+    ops, by = bound_ms(3 * macs, nbytes, "tf32")
+    rec["bound_ms"], rec["bound_by"] = ops, by
+    rec["cuda_core_bound_ms"], rec["cuda_core_bound_by"] = bound_ms(macs, nbytes, "float32")
+
+
+def f64_scores(routes: dict, ref64) -> dict:
+    """The f64 criterion on one output: max |route - f64| of each route (the
+    kernels and "plain", the plain f32 version) and the limit, F64_FACTOR x
+    plain f32's or F64_FLOOR of the largest f64 entry."""
+    err = {k: float((v.double() - ref64).abs().max()) for k, v in routes.items()}
+    scale = float(ref64.abs().max())
+    return {"err": err, "scale": scale, "limit": max(F64_FACTOR * err["plain"], F64_FLOOR * scale)}
+
+
+def f64_union(scores: list) -> dict:
+    """f64_scores of one output over the union of several calls' points."""
+    err = {k: max(f["err"][k] for f in scores) for k in scores[0]["err"]}
+    scale = max(f["scale"] for f in scores)
+    return {"err": err, "scale": scale, "limit": max(F64_FACTOR * err["plain"], F64_FLOOR * scale)}
+
+
+def require_f64(f: dict, what: str) -> None:
+    require(f["err"]["kernel"] <= f["limit"], f"{what}: {f['err']['kernel']:.3g} off f64, above the f64 "
+            f"criterion's {f['limit']:.3g} (plain f32 {f['err']['plain']:.3g})")
 
 
 def require(cond: bool, what: str) -> None:
@@ -266,11 +328,13 @@ def _k1_inputs(model, cfg, n_points, dtype, gen):
 
 
 def check_k1(model, cfg, n_points, dtype, gen, reps, library=False, variants=False):
-    """K1 against fused_sdf_plain. ``variants`` (bf16): also the scalar
-    kernel it replaced, the tensor-core kernel with the exact softplus and
-    the one with its products by mma.sync on the same inputs, each against
+    """K1 against fused_sdf_plain. ``variants``: also, on the same inputs,
+    the scalar kernel it replaced and (bf16) the tensor-core kernel with the
+    exact softplus and the one with its products by mma.sync, each against
     plain; with ``reps`` they are timed in turns beside the plain version and
-    the library route."""
+    the library route. f32 (the 3xTF32 kernel): both kernels and plain f32
+    also against the plain version in f64 (the f64 criterion), and both
+    bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -292,10 +356,16 @@ def check_k1(model, cfg, n_points, dtype, gen, reps, library=False, variants=Fal
         }
         timed = {"ms": lambda: fused_sdf_kernel(emb, ws, bs),
                  "plain_ms": lambda: fused_sdf_plain(emb, ws, bs)}
+        outs = {}
         if variants:
-            for v in K1_VARIANTS:
-                rec[f"{v}_err"] = rel_err(fused_sdf_kernel_variant(emb, ws, bs, v), ref)
+            for v in K1_VARIANTS[dtype]:
+                outs[v] = fused_sdf_kernel_variant(emb, ws, bs, v)
+                rec[f"{v}_err"] = rel_err(outs[v], ref)
                 timed[f"{v}_ms"] = lambda v=v: fused_sdf_kernel_variant(emb, ws, bs, v)
+        if dtype == "float32":
+            ref64 = fused_sdf_plain(emb.double(), [w.double() for w in ws], [b.double() for b in bs])
+            rec["f64"] = f64_scores({"kernel": got, **outs, "plain": ref}, ref64)
+            del ref64
         if library:
             wl = [w.T.contiguous() for w in ws]  # (out, in) for F.linear
             bl = [b.to(cd) for b in bs]
@@ -319,28 +389,45 @@ def check_k1(model, cfg, n_points, dtype, gen, reps, library=False, variants=Fal
             nbytes = n_points * (39 * emb.element_size() + 4) + weight_bytes(
                 CANONICAL_SHAPES, emb.element_size()
             )
-            rec["bound_ms"], rec["bound_by"] = bound_ms(macs, nbytes, dtype)
+            if dtype == "float32":
+                f32_bounds(macs, nbytes, rec)
+            else:
+                rec["bound_ms"], rec["bound_by"] = bound_ms(macs, nbytes, dtype)
     what = f"K1 {dtype} n={n_points}"
     require(rec["finite"], f"{what}: non-finite output")
     require(rec["err"] <= TOL[dtype], f"{what}: err {rec['err']:.3g} > {TOL[dtype]}")
     if variants:
-        for v in K1_VARIANTS:
+        for v in K1_VARIANTS[dtype]:
             require(rec[f"{v}_err"] <= TOL[dtype], f"{what}: {v} kernel err {rec[v + '_err']:.3g} > {TOL[dtype]}")
+    if variants and dtype == "bfloat16":
         require(rec["err"] <= max(K1_VS_SCALAR * rec["scalar_err"], K1_ERR_FLOOR),
                 f"{what}: err {rec['err']:.3g} > {K1_VS_SCALAR} x the scalar kernel's {rec['scalar_err']:.3g}")
+    if "f64" in rec and n_points >= F64_MIN_POINTS:
+        require_f64(rec["f64"], what)
     return rec
 
 
+def f64_text(f) -> str:
+    """The f64 criterion's scores of one output as a printed phrase."""
+    return ("off f64 " + ", ".join(f"{k} {v:.3g}" for k, v in f["err"].items()) + f" (limit {f['limit']:.3g})")
+
+
 def print_k1(r):
+    variants = K1_VARIANTS[r["dtype"]]
     line = f"K1 {r['dtype']} n={r['n']}: err {r['err']:.3g}"
     if "scalar_err" in r:
-        line += " (" + ", ".join(f"{name} {r[v + '_err']:.3g}" for v, name in K1_VARIANTS.items()) + ")"
+        line += " (" + ", ".join(f"{name} {r[v + '_err']:.3g}" for v, name in variants.items()) + ")"
+    if "f64" in r:
+        line += "; " + f64_text(r["f64"])
     if "ms" in r:
         line += f", {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}"
-        for key, name in (*((v + "_ms", name) for v, name in K1_VARIANTS.items()), ("library_ms", "library")):
+        for key, name in (*((v + "_ms", name) for v, name in variants.items()), ("library_ms", "library")):
             if key in r:
                 line += f", {name} {r[key]:.3f}"
-        line += f"; bound {r['bound_ms']:.3f} by {r['bound_by']})"
+        line += f"; bound {r['bound_ms']:.3f} by {r['bound_by']}"
+        if "cuda_core_bound_ms" in r:
+            line += f", on the CUDA cores {r['cuda_core_bound_ms']:.3f}"
+        line += ")"
     print(line, flush=True)
 
 
@@ -350,15 +437,21 @@ def k1_phase(model, cfg, gen, quick):
     recs = []
     if quick:
         for dt in ("float32", "bfloat16"):
-            recs.append(check_k1(model, cfg, 1000, dt, gen, reps=0, variants=dt == "bfloat16"))
+            recs.append(check_k1(model, cfg, 1000, dt, gen, reps=0, variants=True))
         return recs
     k1_launch = 1024 * cfg.sampler.n_samples_eval  # one sampler round
     recs.append(check_k1(model, cfg, k1_launch, "bfloat16", gen, reps=40, library=True, variants=True))
     for n in K1_RAGGED:
         recs.append(check_k1(model, cfg, n, "bfloat16", gen, reps=0, variants=True))
     recs.append(check_k1(model, cfg, 1024 * 640, "bfloat16", gen, reps=0, variants=True))
-    recs.append(check_k1(model, cfg, k1_launch, "float32", gen, reps=6))
-    recs.append(check_k1(model, cfg, 1024 * 640, "float32", gen, reps=0))
+    # f32, the 3xTF32 kernel beside the scalar one: the ragged sizes, then
+    # a finalize chunk's 2,048 x 128 points, timed in turns
+    ragged = [check_k1(model, cfg, n, "float32", gen, reps=0, variants=True) for n in K1_RAGGED]
+    require_f64(f64_union([r["f64"] for r in ragged]), f"K1 float32 n={'+'.join(map(str, K1_RAGGED))}")
+    recs += ragged
+    recs.append(check_k1(model, cfg, 2048 * cfg.sampler.n_samples_eval, "float32", gen, reps=6, library=True,
+                         variants=True))
+    recs.append(check_k1(model, cfg, 1024 * 640, "float32", gen, reps=0, variants=True))
     return recs
 
 
@@ -482,6 +575,9 @@ def check_fwd(kind, model, cfg, n, gen, reps, library=False):
 
 
 def print_fwd(r):
+    if r.get("dtype") == "float32":
+        print_fwd_f32(r)
+        return
     line = (f"{r['kind'].upper()}-fwd bf16 n={r['n']}: err {json.dumps({k: float(f'{v:.3g}') for k, v in r['err'].items()})}"
             f" (scalar kernel {json.dumps({k: float(f'{v:.3g}') for k, v in r['scalar_err'].items()})})")
     if "stash_steps_off" in r:
@@ -500,12 +596,87 @@ def print_fwd(r):
 FWD_RAGGED = (1, 127, 129, 1000)
 
 
+def check_fwd_f32(model, cfg, n, gen, reps, library=False):
+    """The f32 K3-fwd of the no-grad route (finalize, render eval), the
+    3xTF32 kernel, and its "scalar" variant (the recompute pair's forward)
+    against field_math in f32 (TOL, each output on its own scale) and in f64
+    (the f64 criterion, each output). With ``reps`` both kernels are timed
+    in turns beside the plain version and the library route, with both
+    bounds."""
+    import torch
+
+    from neat_tpu_torch.ops import fused_field as F
+
+    cd = torch.float32
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    x, d, _ = _field_inputs(n, gen)
+    names = ("sdf", "grads", "rgb", "att")
+    with torch.no_grad():
+        flat = tuple(t.detach().contiguous() for t in F._flatten_eff(model))
+        run = lambda: F.field_fwd_kernel(flat, x, d, icfg, cd)
+        scalar = lambda: F.field_fwd_kernel_variant(flat, x, d, icfg, cd, "scalar")
+        plain = lambda: F.field_math(flat, x, d, icfg, rcfg, cd)
+        got, sc, ref = run(), scalar(), plain()
+        ref64 = F.field_math(tuple(t.double() for t in flat), x.double(), d.double(), icfg, rcfg, torch.float64)
+        torch.cuda.synchronize()
+        rec = {
+            "kind": "k3", "dtype": "float32", "n": n,
+            "err": {k: rel_err(a, b) for k, a, b in zip(names, got, ref)},
+            "scalar_err": {k: rel_err(a, b) for k, a, b in zip(names, sc, ref)},
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+            "finite": all(bool(torch.isfinite(t).all()) for t in got),
+            "f64": {k: f64_scores({"kernel": a, "scalar": c, "plain": b}, r)
+                    for k, a, c, b, r in zip(names, got, sc, ref, ref64)},
+        }
+        del ref64
+        if reps:
+            timed = {"ms": run, "scalar_ms": scalar, "plain_ms": plain}
+            if library:
+                with torch.enable_grad():
+                    timed["library_ms"] = library_fwd(
+                        model, cfg, x.clone().requires_grad_(True), d.clone().requires_grad_(True), None)
+            for _ in range(2):  # in turns: every route once per round, two rounds
+                for key, fn in timed.items():
+                    with torch.enable_grad() if key == "library_ms" else torch.no_grad():
+                        rec[key] = rec.get(key, 0.0) + time_ms(fn, reps // 2) / 2
+            f32_bounds(k2_macs_per_point()[0] * n, fwd_bytes(n, "k3", 4), rec)
+    what = f"K3-fwd f32 n={n}"
+    tol = TOL["float32"]
+    require(rec["finite"], f"{what}: non-finite output")
+    for k in names:
+        require(rec["err"][k] <= tol, f"{what}: {k} err {rec['err'][k]:.3g} > {tol}")
+        require(rec["scalar_err"][k] <= tol, f"{what}: scalar kernel's {k} err {rec['scalar_err'][k]:.3g} > {tol}")
+        if n >= F64_MIN_POINTS:
+            require_f64(rec["f64"][k], f"{what}: {k}")
+    return rec
+
+
+def print_fwd_f32(r):
+    line = (f"K3-fwd f32 n={r['n']}: err {json.dumps({k: float(f'{v:.3g}') for k, v in r['err'].items()})} "
+            f"(scalar kernel {json.dumps({k: float(f'{v:.3g}') for k, v in r['scalar_err'].items()})}); "
+            + "; ".join(f"{k} {f64_text(f)}" for k, f in r["f64"].items()))
+    if "ms" in r:
+        line += (f"; {r['ms']:.3f} ms (scalar {r['scalar_ms']:.3f}, plain {r['plain_ms']:.3f}"
+                 + (f", library {r['library_ms']:.3f}" if "library_ms" in r else "")
+                 + f"; bound {r['bound_ms']:.3f} by {r['bound_by']}, on the CUDA cores "
+                 f"{r['cuda_core_bound_ms']:.3f})")
+    print(line, flush=True)
+
+
 def fwd_phase(kind, model, cfg, gen, quick, n_main):
     """Every check of one bf16 field forward: the ragged sizes, and (not
-    quick) the main path's size, timed in turns."""
+    quick) the main path's size, timed in turns. K3-fwd also in f32 (the
+    3xTF32 kernel beside the scalar one) at the same sizes."""
     recs = [check_fwd(kind, model, cfg, n, gen, reps=0) for n in FWD_RAGGED]
     if not quick:
         recs.append(check_fwd(kind, model, cfg, n_main, gen, reps=20, library=True))
+    if kind == "k3":
+        ragged = [check_fwd_f32(model, cfg, n, gen, reps=0) for n in FWD_RAGGED]
+        for k in ragged[0]["f64"]:
+            require_f64(f64_union([r["f64"][k] for r in ragged]), f"K3-fwd f32 n={'+'.join(map(str, FWD_RAGGED))}: {k}")
+        recs += ragged
+        if not quick:
+            recs.append(check_fwd_f32(model, cfg, n_main, gen, reps=6, library=True))
     return recs
 
 
@@ -867,6 +1038,16 @@ def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
         flat = tuple(t.detach().contiguous() for t in F._flatten_eff(model))
         got = F.field_fwd_kernel(flat, x, d, icfg, cd)
         ref = F.field_math(flat, x, d, icfg, rcfg, cd)
+        # the forward K3_FWD_TOL and the K2 pair hold: in f32 the recompute
+        # pair's (the scalar tile, which K3-bwd re-runs), not the no-grad
+        # route's 3xTF32 kernel, held below to TOL and the f64 criterion
+        pair = got if bf16 else F.field_fwd_kernel_variant(flat, x, d, icfg, cd, "scalar")
+        if not bf16:
+            ref64 = F.field_math(tuple(t.double() for t in flat), x.double(), d.double(), icfg, rcfg, torch.float64)
+            tf32 = {"err": {k: rel_err(a, b) for k, a, b in zip(names, got, ref)},
+                    "f64": {k: f64_scores({"kernel": a, "scalar": c, "plain": b}, r)
+                            for k, a, c, b, r in zip(names, got, pair, ref, ref64)}}
+            del ref64
         k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
         bgot, refwd = recorded_k3_bwd(flat, x, d, cots, icfg, cd)
         # the model's K2: K2-fwd, then K2-bwd on its stash (bf16: the split one)
@@ -879,11 +1060,13 @@ def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
                 flat, x, d, k2s[4], k2s[5], k2s[2], k2s[1], cots, icfg, cd, "scalar")
             bsc = F.field_bwd_kernel_variant(flat, x, d, cots, icfg, cd, "scalar")
         torch.cuda.synchronize()
-    fwd_err = {k: rel_err(a, b) for k, a, b in zip(names, got, ref)}
-    fwd_abs = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-    fwd_vs_k2 = max(rel_err(a, b) for a, b in zip(got, k2[:4]))
+    fwd_err = {k: rel_err(a, b) for k, a, b in zip(names, pair, ref)}
+    fwd_abs = max(float((a - b).abs().max()) for a, b in zip(pair, ref))
+    fwd_vs_k2 = max(rel_err(a, b) for a, b in zip(pair, k2[:4]))
     kernel = flat_out(bgot)
     rec = {"n": n, "dtype": dtype, "fwd_err": fwd_err, "fwd_max_abs_err": fwd_abs, "fwd_vs_k2": fwd_vs_k2}
+    if not bf16:
+        rec["tf32"] = tf32
     if bf16:
         rec["bwd_vs_k2_dxdd"] = max(float((a - b).abs().max()) for a, b in zip(kernel[-2:], flat_out(bk2)[-2:]))
         rec["bwd_vs_k2_dparams"] = max(rel_err(a, b) for a, b in zip(bgot[0], bk2[0]))
@@ -963,6 +1146,11 @@ def check_k3(model, cfg, n, dtype, gen, reps, library=None, self_noise=False):
     for k, v in fwd_err.items():
         require(v <= K3_FWD_TOL[dtype], f"{what}: forward {k} err {v:.3g} > {K3_FWD_TOL[dtype]}")
     require(fwd_vs_k2 <= K3_VS_K2, f"{what}: forward differs from K2-fwd by {fwd_vs_k2:.3g}")
+    if not bf16:
+        for k, f in tf32["f64"].items():
+            require(tf32["err"][k] <= TOL[dtype], f"{what}: 3xTF32 forward {k} err {tf32['err'][k]:.3g} > {TOL[dtype]}")
+            if n >= F64_MIN_POINTS:
+                require_f64(f, f"{what}: 3xTF32 forward {k}")
     if bf16:
         require(rec["bwd_vs_k2_dxdd"] <= K3_SPLIT_VS_K2,
                 f"{what}: dx or dd differs from K2-fwd + split K2-bwd by {rec['bwd_vs_k2_dxdd']:.3g}")
@@ -991,7 +1179,9 @@ def print_k3(r):
                 f"pair {r['scalar_vs_k2']:.3g} (the model's against the scalar, rel L2 {r['scalar_l2']:.3g}); "
                 f"against its chunked plain version, rel L2 {r['bwd_split_plain_l2']:.3g}")
     else:
-        line = f"against K2: bwd {r['bwd_vs_k2']:.3g}"
+        line = f"against K2: bwd {r['bwd_vs_k2']:.3g}; the 3xTF32 forward: err " + json.dumps(
+            {k: float(f"{v:.3g}") for k, v in r["tf32"]["err"].items()}) + "; " + "; ".join(
+            f"{k} {f64_text(f)}" for k, f in r["tf32"]["f64"].items())
     print(f"K3 {r['dtype']} n={r['n']}: fwd {json.dumps(r['fwd_err'])}; against K2: fwd {r['fwd_vs_k2']:.3g}; "
           + line + f"; bwd against autograd: L2 {json.dumps(r['bwd_l2'])}, max {json.dumps(r['bwd_max'])}, "
           f"{r['bwd_points_off']} points off in dx or dd"
@@ -1923,23 +2113,30 @@ def compare_field_lines(routes, view):
 
 
 def time_eval_kernels(k1_inputs, k3_inputs, model, cfg):
-    """The f32 K1 and K3-fwd on the inputs the pipeline handed them (one
-    chunk of each shape): each against its plain version, its device time
-    from the profiler's events (10 launches, one shape a profiler window),
-    the plain version's and the library route's time (CUDA events), and
-    the bound."""
+    """The f32 K1 and K3-fwd (the 3xTF32 kernels) on the inputs the pipeline
+    handed them (one chunk of each shape): each against its plain version
+    (TOL) and, beside its scalar variant, against the plain version in f64
+    (the f64 criterion); the device time of the kernel and of the scalar
+    variant from the profiler's events (10 launches each, in turns, one
+    shape a profiler window), the plain version's and the library route's
+    time (CUDA events), and both bounds."""
     import torch
     import torch.nn.functional as Fn
 
     from neat_tpu_torch.fields.mlp import _softplus100
     from neat_tpu_torch.ops import fused_field as F
-    from neat_tpu_torch.ops.fused_sdf import CANONICAL_SHAPES, fused_sdf_kernel, fused_sdf_plain
+    from neat_tpu_torch.ops.fused_sdf import (
+        CANONICAL_SHAPES, fused_sdf_kernel, fused_sdf_kernel_variant, fused_sdf_plain,
+    )
 
     icfg, rcfg = cfg.implicit, cfg.rendering
     calls, recs = {}, {}
+    names = ("sdf", "grads", "rgb", "att")
     with torch.no_grad():
         for n, (emb, ws, bs) in sorted(k1_inputs.items()):
             got, ref = fused_sdf_kernel(emb, ws, bs), fused_sdf_plain(emb, ws, bs)
+            sc = fused_sdf_kernel_variant(emb, ws, bs, "scalar")
+            ref64 = fused_sdf_plain(emb.double(), [w.double() for w in ws], [b.double() for b in bs])
             wl = [w.T.contiguous() for w in ws]
 
             def lib(emb=emb, wl=wl, bs=bs):
@@ -1951,31 +2148,54 @@ def time_eval_kernels(k1_inputs, k3_inputs, model, cfg):
                     h = _softplus100(Fn.linear(h, wl[l], bs[l]))
                 return Fn.linear(h, wl[8], bs[8])
 
-            b_ms, b_by = bound_ms(k1_macs_per_point() * n, n * (39 * 4 + 4) + weight_bytes(CANONICAL_SHAPES, 4),
-                                  "float32")
-            recs[f"k1/{n}"] = {"kernel": "K1", "n": n, "err": rel_err(got, ref),
-                               "max_abs_err": float((got - ref).abs().max()),
-                               "plain_ms": time_ms(lambda: fused_sdf_plain(emb, ws, bs), 6),
-                               "library_ms": time_ms(lib, 6), "bound_ms": b_ms, "bound_by": b_by}
-            calls[f"k1/{n}"] = (lambda emb=emb, ws=ws, bs=bs: fused_sdf_kernel(emb, ws, bs), "fused_sdf_kernel<float>")
+            recs[f"k1/{n}"] = rec = {"kernel": "K1", "n": n, "err": rel_err(got, ref), "scalar_err": rel_err(sc, ref),
+                                     "max_abs_err": float((got - ref).abs().max()),
+                                     "f64": {"sdf": f64_scores({"kernel": got, "scalar": sc, "plain": ref}, ref64)},
+                                     "plain_ms": time_ms(lambda: fused_sdf_plain(emb, ws, bs), 6),
+                                     "library_ms": time_ms(lib, 6)}
+            f32_bounds(k1_macs_per_point() * n, n * (39 * 4 + 4) + weight_bytes(CANONICAL_SHAPES, 4), rec)
+            calls[f"k1/{n}"] = {
+                "ms": (lambda emb=emb, ws=ws, bs=bs: fused_sdf_kernel(emb, ws, bs), "fused_sdf_tf32_kernel"),
+                "scalar_ms": (lambda emb=emb, ws=ws, bs=bs: fused_sdf_kernel_variant(emb, ws, bs, "scalar"),
+                              "fused_sdf_kernel<float>"),
+            }
+            del ref64
         for n, (flat, x, d, _, cd) in sorted(k3_inputs.items()):
             got, ref = F.field_fwd_kernel(flat, x, d, icfg, cd), F.field_math(flat, x, d, icfg, rcfg, cd)
+            sc = F.field_fwd_kernel_variant(flat, x, d, icfg, cd, "scalar")
+            ref64 = F.field_math(tuple(t.double() for t in flat), x.double(), d.double(), icfg, rcfg, torch.float64)
             with torch.enable_grad():
                 lib = library_fwd(model, cfg, x.clone().requires_grad_(True), d.clone().requires_grad_(True), None)
                 lib_ms = time_ms(lib, 4)
-            b_ms, b_by = bound_ms(k2_macs_per_point()[0] * n, fwd_bytes(n, "k3", 4), "float32")
-            recs[f"k3/{n}"] = {"kernel": "K3-fwd", "n": n, "err": max(rel_err(a, b) for a, b in zip(got, ref)),
-                               "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
-                               "plain_ms": time_ms(lambda: F.field_math(flat, x, d, icfg, rcfg, cd), 4),
-                               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-            calls[f"k3/{n}"] = (lambda flat=flat, x=x, d=d, cd=cd: F.field_fwd_kernel(flat, x, d, icfg, cd),
-                                "field_fwd_kernel<float>")
-        # the profiler tells the kernels apart by name only: one size a window
-        dev = {key: device_ms_in_turns({key: call}, 10)[key] for key, call in calls.items()}
+            recs[f"k3/{n}"] = rec = {
+                "kernel": "K3-fwd", "n": n, "err": max(rel_err(a, b) for a, b in zip(got, ref)),
+                "scalar_err": max(rel_err(a, b) for a, b in zip(sc, ref)),
+                "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+                "f64": {k: f64_scores({"kernel": a, "scalar": c, "plain": b}, r)
+                        for k, a, c, b, r in zip(names, got, sc, ref, ref64)},
+                "plain_ms": time_ms(lambda: F.field_math(flat, x, d, icfg, rcfg, cd), 4), "library_ms": lib_ms}
+            f32_bounds(k2_macs_per_point()[0] * n, fwd_bytes(n, "k3", 4), rec)
+            calls[f"k3/{n}"] = {
+                "ms": (lambda flat=flat, x=x, d=d, cd=cd: F.field_fwd_kernel(flat, x, d, icfg, cd),
+                       "field_fwd_tf32_kernel"),
+                "scalar_ms": (lambda flat=flat, x=x, d=d, cd=cd: F.field_fwd_kernel_variant(flat, x, d, icfg, cd, "scalar"),
+                              "field_fwd_kernel<float>"),
+            }
+            del ref64
+        # the profiler tells the kernels apart by name only: one size a window,
+        # the kernel and its scalar variant in turns
+        dev = {key: device_ms_in_turns(pair, 10) for key, pair in calls.items()}
     for key, r in recs.items():
-        r["ms"], r["seen"] = dev[key]
+        r["ms"], r["seen"] = dev[key]["ms"]
+        r["scalar_ms"], r["scalar_seen"] = dev[key]["scalar_ms"]
         r["share"] = r["bound_ms"] / r["ms"]
-        require(r["err"] <= TOL["float32"], f"{r['kernel']} f32 n={r['n']}: err {r['err']:.3g} > {TOL['float32']}")
+        r["scalar_share"] = r["bound_ms"] / r["scalar_ms"]
+        what = f"{r['kernel']} f32 n={r['n']}"
+        require(r["err"] <= TOL["float32"], f"{what}: err {r['err']:.3g} > {TOL['float32']}")
+        require(r["scalar_err"] <= TOL["float32"], f"{what}: scalar kernel's err {r['scalar_err']:.3g} > {TOL['float32']}")
+        for k, f in r["f64"].items():
+            if r["n"] >= F64_MIN_POINTS:
+                require_f64(f, f"{what}: {k}")
     return recs
 
 
@@ -1986,8 +2206,8 @@ def finalize_phase(rundir, data_root):
     the mesh. Every launch counted per CLI: each field evaluation runs the
     f32 K1 (5 launches a chunk) and the f32 K3-fwd (1), nothing else; the
     mesh grid K1 alone. Then view_field_lines of two views on both routes,
-    the mesh grid's SDF on both, and the two kernels timed at the shapes
-    the pipeline gave them."""
+    the mesh grid's SDF on both, and the two kernels checked and timed at
+    the shapes the pipeline gave them, beside their scalar variants."""
     import glob
     import pickle
 
@@ -2173,9 +2393,13 @@ def print_finalize(r, card: str) -> None:
     print(f"mesh grid, K1 f32 against plain: err {r['grid_err']:.3g}; vertices {r['grid_verts']['kernel']} on the "
           f"kernel, {r['grid_verts']['plain']} plain", flush=True)
     for key, k in r["kernels"].items():
-        print(f"{k['kernel']} f32 n={k['n']}: err {k['err']:.3g}, device {k['ms']:.3f} ms (the profiler saw "
-              f"{k['seen']} of 10), plain {k['plain_ms']:.3f}, library {k['library_ms']:.3f}; bound "
-              f"{k['bound_ms']:.3f} by {k['bound_by']} ({100 * k['share']:.1f}%); {card}", flush=True)
+        print(f"{k['kernel']} f32 n={k['n']}: err {k['err']:.3g} (scalar kernel {k['scalar_err']:.3g}); "
+              + "; ".join(f"{o} {f64_text(f)}" for o, f in k["f64"].items())
+              + f"; device {k['ms']:.3f} ms (the profiler saw {k['seen']} of 10), the scalar kernel "
+              f"{k['scalar_ms']:.3f} ({k['scalar_seen']} of 10), plain {k['plain_ms']:.3f}, library "
+              f"{k['library_ms']:.3f}; bound {k['bound_ms']:.3f} by {k['bound_by']} as 3xTF32 "
+              f"({100 * k['share']:.1f}%, the scalar kernel {100 * k['scalar_share']:.1f}%), on the CUDA cores "
+              f"{k['cuda_core_bound_ms']:.3f}; {card}", flush=True)
 
 
 def finalize_kernel_entries(fin):
@@ -2185,8 +2409,8 @@ def finalize_kernel_entries(fin):
     src = "neat_tpu_torch/csrc/"
     out = []
     for name, key, prefix, file, replaces in (
-        ("fused_sdf_f32", "fused_sdf", "k1/", "fused_sdf.cu", "neat_tpu/ops/fused_sdf.py:66"),
-        ("field_fwd_f32", "field_fwd", "k3/", "fused_field.cu", "neat_tpu/ops/fused_field.py:210"),
+        ("fused_sdf_f32", "fused_sdf", "k1/", "fused_sdf_tf32.cu", "neat_tpu/ops/fused_sdf.py:66"),
+        ("field_fwd_f32", "field_fwd", "k3/", "field_fwd_tf32.cu", "neat_tpu/ops/fused_field.py:210"),
     ):
         # finalize's chunk is the largest shape each kernel is handed
         rec = max((r for k, r in fin["kernels"].items() if k.startswith(prefix)), key=lambda r: r["n"])
@@ -2194,7 +2418,8 @@ def finalize_kernel_entries(fin):
             name=name, route="cuda", source=src + file, replaces=replaces, launches=fin["finalize_launches"][key],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"], n=rec["n"],
-            launches_render_view=fin["render_launches"][key], launches_mesh=fin["mesh_launches"][key]))
+            launches_render_view=fin["render_launches"][key], launches_mesh=fin["mesh_launches"][key],
+            scalar_ms=rec["scalar_ms"], cuda_core_bound_ms=rec["cuda_core_bound_ms"]))
     return out
 
 
@@ -2203,11 +2428,13 @@ def finalize_kernel_entries(fin):
 # --only <kernel>: the libraries that kernel's checks build (the kernel's
 # own and the scalar kernel it is held against; for K4, K1's, which the
 # sampler run that makes its inputs launches)
-ONLY = {"k1": ("fused_sdf",), "k2": ("field_fwd_mma", "fused_field_stash"),
-        "k3": ("field_fwd_mma", "fused_field"), "k2b": ("field_dw_mma", "fused_field_stash", "field_bwd_mma"),
+ONLY = {"k1": ("fused_sdf", "fused_sdf_tf32"), "k2": ("field_fwd_mma", "fused_field_stash"),
+        "k3": ("field_fwd_mma", "fused_field", "field_fwd_tf32"),
+        "k2b": ("field_dw_mma", "fused_field_stash", "field_bwd_mma"),
         "k3b": ("field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field"),
         "runner": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma"),
-        "k4": ("fused_round", "fused_sdf"), "finalize": ("fused_sdf", "fused_field")}
+        "k4": ("fused_round", "fused_sdf"),
+        "finalize": ("fused_sdf", "fused_field", "fused_sdf_tf32", "field_fwd_tf32")}
 
 
 def print_runner(r, card: str) -> None:
@@ -2402,9 +2629,10 @@ def main() -> int:
                  bound_ms=t1["bound_ms"], bound_by=t1["bound_by"], library_ms=t1["library_ms"]),
         ]
         # the forwards: the tensor-core kernel, timed in turns at the main path's size
+        bf16_fwd3 = [r for r in fwd3 if r.get("dtype") != "float32"]
         for name, file, line, rec, path in (
             ("field_fwd_stash", "fused_field_stash", 448, fwd2[-1], "main"),
-            ("field_fwd", "fused_field", 210, fwd3[-1], "recompute"),
+            ("field_fwd", "fused_field", 210, bf16_fwd3[-1], "recompute"),
         ):
             kernels.append(dict(
                 name=name, route="cuda", source=src + "field_fwd_mma.cu",

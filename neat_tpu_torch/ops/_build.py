@@ -23,7 +23,7 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("fused_sdf", "fused_field_stash", "fused_field", "fused_round", "field_fwd_mma", "field_dw_mma",
-           "field_bwd_mma")
+           "field_bwd_mma", "fused_sdf_tf32", "field_fwd_tf32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

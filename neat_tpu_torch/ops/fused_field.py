@@ -27,9 +27,22 @@ and a chunk's stash and workspace (0.57 GB) stay well below the 3.5 GB the
 stashing path keeps at the main path's size. Its plain version is
 ``fused_field_stash.field_bwd_recompute_split_plain``, in the same chunks.
 
-f32 keeps the first, scalar kernels (``csrc/fused_field.cu``), and bf16 has
-them as the "scalar" variants. Both are persistent: one 256-thread block
-per SM walks the 32-point tiles; the forward's reverse sweep needs the
+f32 K3-fwd, on the no-grad route of finalize and render eval
+(``field_primal``), is the bf16 forward's design with f32 operands as
+3xTF32 products (``csrc/field_fwd_tf32.cu``; ``tf32.py`` holds the split,
+the 391 packed pairs of hi/lo panels a tile reads and the CPU model). One
+TF32 product puts the spatial gradient 8e-3 of its scale off f64 (plain
+f32: 7e-6); three, each pair's sum taken by the tensor core from zero and
+added in f32, are within 1.5x plain f32's error on every output
+(tests/test_torch_tf32.py prints them). The post-activations the sweep
+needs go to a per-block scratch straight from the accumulator fragments.
+The recompute pair under autograd (``_FusedField``) keeps the scalar
+forward in f32: its backward re-runs the scalar tile and differentiates
+the activations its forward returned.
+
+The f32 K3-bwd keeps the first, scalar kernels (``csrc/fused_field.cu``),
+and bf16 has them as the "scalar" variants, as f32 K3-fwd does. Both are
+persistent: one 256-thread block per SM walks the 32-point tiles; the forward's reverse sweep needs the
 eight post-activations of the tile, which go to a per-block scratch in the
 stash's column layout (32 x 4057 compute-dtype values, L2-resident,
 rewritten by every tile) instead of an (N, 4057) array. The scalar K3-bwd
@@ -74,7 +87,7 @@ from ..fields.mlp import (
     _skip_concat,
     _softplus100,
 )
-from . import _build
+from . import _build, tf32
 
 N_IMPLICIT_LAYERS = 9
 N_HEAD_LAYERS = 5  # rendering / attraction MLPs: 4 hidden + 1 out
@@ -181,57 +194,61 @@ def _sphere(x, icfg: ImplicitNetConfig):
     return None, None
 
 
-def _implicit_chain(iw, e_cd, cd, el):
+def _implicit_chain(iw, e_cd, cd, el, mm=None):
     """The 9 implicit layers on the compute-dtype embedding: (z8 in el, the
-    eight post-activations in cd)."""
+    eight post-activations in cd). ``mm``: the product in ``_mm``'s place."""
+    mm = mm or _mm
     posts = []
     h = e_cd
     for l in range(N_IMPLICIT_LAYERS):
         if l == 4:
             h = _skip_concat(h, e_cd)
         w, b = iw[l]
-        z = _mm(h, w, cd, el) + b
+        z = mm(h, w, cd, el) + b
         if l < N_IMPLICIT_LAYERS - 1:
             h = _softplus100(z).to(cd)
             posts.append(h)
     return z, posts
 
 
-def _head(weights, inp, cd, el):
+def _head(weights, inp, cd, el, mm=None):
     """A 5-layer relu head: (output in el, the four post-activations in cd)."""
+    mm = mm or _mm
     posts = []
     h = inp.to(cd)
     for l in range(N_HEAD_LAYERS):
         w, b = weights[l]
-        h = _mm(h, w, cd, el) + b
+        h = mm(h, w, cd, el) + b
         if l < N_HEAD_LAYERS - 1:
             h = torch.clamp(h, min=0.0).to(cd)
             posts.append(h)
     return h, posts
 
 
-def field_math(flat_eff, x, d, icfg: ImplicitNetConfig, rcfg: RenderNetConfig, compute_dtype):
+def field_math(flat_eff, x, d, icfg: ImplicitNetConfig, rcfg: RenderNetConfig, compute_dtype, mm=None):
     """The per-point field math: (sdf (N,1), grads (N,3), rgb (N,3),
     att (N,6)) from the 38 resolved operands, points x and directions d.
 
     ``att`` is the raw offset head; the caller assembles the endpoints. The
     spatial gradient is autograd's, of the clamped sdf; when the caller
     records a graph it is recorded through the gradient too, so the
-    outputs differentiate to second order."""
+    outputs differentiate to second order. ``mm(h, w, cd, el)``: every
+    product in ``_mm``'s place (``tf32`` models the tensor cores' f32
+    products with it)."""
     iw, rw, aw = _unflatten_eff(flat_eff)
     cd = compute_dtype
     el = torch.promote_types(torch.float32, cd)
 
     def implicit_with_clamp(pts):
-        z8, _ = _implicit_chain(iw, _pe(pts, icfg.multires).to(cd), cd, el)
+        z8, _ = _implicit_chain(iw, _pe(pts, icfg.multires).to(cd), cd, el, mm)
         sdf_raw, feats = z8[..., :1], z8[..., 1:]
         _, sphere = _sphere(pts, icfg)
         return (torch.minimum(sdf_raw, sphere) if sphere is not None else sdf_raw), feats
 
     (sdf, feats), grads = _input_grad(implicit_with_clamp, x)
     d_enc = _pe(d, rcfg.multires_view) if rcfg.multires_view > 0 else d
-    zr, _ = _head(rw, torch.cat([x, d_enc, grads, feats], dim=-1), cd, el)
-    att, _ = _head(aw, torch.cat([x, d, grads, feats], dim=-1), cd, el)
+    zr, _ = _head(rw, torch.cat([x, d_enc, grads, feats], dim=-1), cd, el, mm)
+    att, _ = _head(aw, torch.cat([x, d, grads, feats], dim=-1), cd, el, mm)
     return sdf, grads, torch.sigmoid(zr), att
 
 
@@ -325,7 +342,18 @@ def _fwd_launch(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
         return outs
     n_sm = _n_sm(x)
     P = _build.ptr
-    if variant == "mma":
+    if variant == "tf32":
+        n_blocks, s_f32 = _tf32_layout(n, n_sm)
+        scratch = torch.empty((n_blocks, s_f32), **kw)
+        w, b = _TF32_PACKED.get(flat_eff, lambda: tf32.pack_field_weights_tf32(flat_eff))
+        fn = _build.load("field_fwd_tf32").field_fwd_tf32
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = fn(
+            P(x), P(d), P(w), P(b), *(P(o) for o in outs), P(scratch),
+            n, n_sm, icfg.sdf_bounding_sphere, icfg.sphere_scale, _build.stream_ptr(x),
+        )
+    elif variant == "mma":
         from .fused_field_stash import _mma_entry, pack_field_weights_gather
 
         n_blocks, s_cd, s_f32 = _mma_layout(n, n_sm)
@@ -360,11 +388,39 @@ def _mma_layout(n: int, max_blocks: int):
     return blocks.value, s_cd.value, s_f32.value
 
 
-def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
+@functools.lru_cache(maxsize=None)
+def _tf32_layout(n: int, max_blocks: int):
+    """(blocks, per-block scratch in f32 values) of the f32 tensor-core
+    forward for n points, as the C side decides them."""
+    fn = _build.load("field_fwd_tf32").field_fwd_tf32_layout
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 2
+    fn.restype = None
+    blocks, s_f32 = ctypes.c_int(), ctypes.c_longlong()
+    fn(n, max_blocks, ctypes.byref(blocks), ctypes.byref(s_f32))
+    return blocks.value, s_f32.value
+
+
+_TF32_PACKED = tf32.TensorCache()  # the last weights the tf32 forward was handed, split and packed
+
+
+def fwd_variant(cd, pair: bool = False) -> str:
+    """The K3-fwd kernel for compute dtype ``cd``: bf16 the tensor-core
+    kernel ("mma"); f32 the 3xTF32 one ("tf32"), but the recompute pair's
+    forward under autograd (``pair``) the scalar tile ("scalar"), which the
+    f32 K3-bwd re-runs: its backward differentiates the activations its
+    forward returned."""
+    if cd == torch.bfloat16:
+        return "mma"
+    return "scalar" if pair else "tf32"
+
+
+def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd, pair: bool = False):
     """Launch K3-fwd: -> sdf (N,1), grads (N,3), rgb (N,3), att (N,6) f32.
-    Nothing else reaches device memory but a per-block scratch. bf16 runs
-    the tensor-core kernel (``csrc/field_fwd_mma.cu``), f32 the scalar one."""
-    outs = _fwd_launch(flat_eff, x, d, icfg, cd, "mma" if cd == torch.bfloat16 else "scalar")
+    Nothing else reaches device memory but a per-block scratch. The kernel
+    is ``fwd_variant(cd, pair)``'s: bf16 ``csrc/field_fwd_mma.cu``, f32
+    ``csrc/field_fwd_tf32.cu``, and the recompute pair's f32 forward the
+    scalar ``csrc/fused_field.cu``; each is counted here."""
+    outs = _fwd_launch(flat_eff, x, d, icfg, cd, fwd_variant(cd, pair))
     if x.shape[0]:
         field_fwd_kernel.launches += 1
     return outs
@@ -373,16 +429,22 @@ def field_fwd_kernel(flat_eff, x, d, icfg: ImplicitNetConfig, cd):
 field_fwd_kernel.launches = 0
 
 
-# the bf16 forwards: the tensor-core kernel the model runs, the scalar one f32 still runs
+# the bf16 forwards: the tensor-core kernel the model runs, the scalar one
+# of the first port (K2-fwd's too)
 FWD_VARIANTS = ("mma", "scalar")
+# the f32 ones: the 3xTF32 kernel, the scalar one of the first port
+F32_FWD_VARIANTS = ("tf32", "scalar")
 
 
 def field_fwd_kernel_variant(flat_eff, x, d, icfg: ImplicitNetConfig, cd, variant: str):
-    """K3-fwd by one of ``FWD_VARIANTS`` on bf16 CUDA tensors, for holding
-    the kernels against each other on the card; nothing on the model's path
-    calls it and it is not counted."""
+    """K3-fwd by one of ``FWD_VARIANTS`` on bf16 CUDA tensors or of
+    ``F32_FWD_VARIANTS`` on f32 ones, for holding the kernels against each
+    other on the card; nothing on the model's path calls it and it is not
+    counted. A bf16 kernel's name with f32 compute raises TypeError."""
+    if cd == torch.float32 and variant in F32_FWD_VARIANTS:
+        return _fwd_launch(flat_eff, x, d, icfg, cd, variant)
     if cd != torch.bfloat16:
-        raise TypeError("the forward variants are bf16")
+        raise TypeError(f"{variant!r} is not a forward variant for {cd}")
     if variant not in FWD_VARIANTS:
         raise ValueError(f"no forward variant {variant!r}")
     return _fwd_launch(flat_eff, x, d, icfg, cd, variant)
@@ -543,13 +605,28 @@ def _cotangents(x, grads_out):
     )
 
 
-def field_primal(flat_eff, x, d, icfg, rcfg, cd):
+def field_primal(flat_eff, x, d, icfg, rcfg, cd, pair: bool = False):
     """The four outputs with no autograd node and no residuals: K3-fwd on
-    CUDA tensors, ``field_math`` on CPU tensors."""
+    CUDA tensors (``pair``: the recompute pair's forward, ``fwd_variant``),
+    ``field_math`` on CPU tensors."""
     with torch.no_grad():
         if x.is_cuda:
-            return field_fwd_kernel(flat_eff, x, d, icfg, cd)
+            return field_fwd_kernel(flat_eff, x, d, icfg, cd, pair)
         return field_math(flat_eff, x, d, icfg, rcfg, cd)
+
+
+_RESOLVED = tf32.TensorCache()  # the last model's f32 operands, resolved for the tf32 forward
+
+
+def resolved_operands(model, x, cd):
+    """``_flatten_eff(model)`` for a forward that nothing differentiates.
+    For the f32 kernel the same tensors come back while the model's
+    parameters stand, so the kernel splits and packs them once."""
+    if not (x.is_cuda and cd == torch.float32):
+        return _flatten_eff(model)
+    params = [*model.implicit.parameters(), *model.rendering.parameters(), *model.attraction.parameters()]
+    with torch.no_grad():
+        return _RESOLVED.get(params, lambda: _flatten_eff(model))
 
 
 class _FusedField(torch.autograd.Function):
@@ -561,7 +638,7 @@ class _FusedField(torch.autograd.Function):
     def forward(ctx, icfg, rcfg, cd, x, d, *flat_eff):
         ctx.cfg = (icfg, rcfg, cd)
         ctx.save_for_backward(x, d, *flat_eff)
-        return field_primal(flat_eff, x, d, icfg, rcfg, cd)
+        return field_primal(flat_eff, x, d, icfg, rcfg, cd, pair=True)
 
     @staticmethod
     def backward(ctx, *grads_out):
@@ -578,6 +655,17 @@ class _FusedField(torch.autograd.Function):
         return (None, None, None, dx, dd, *deff)
 
 
+def _differentiated(model, points, dirs) -> bool:
+    """Whether a graph is recorded through the field: grad mode is on and
+    the points, the directions or a parameter of the three nets require a
+    gradient."""
+    nets = (model.implicit, model.rendering, model.attraction)
+    return torch.is_grad_enabled() and (
+        points.requires_grad or dirs.requires_grad
+        or any(p.requires_grad for net in nets for p in net.parameters())
+    )
+
+
 def fused_field_eval(
     model,
     points: torch.Tensor,
@@ -590,11 +678,20 @@ def fused_field_eval(
     """Main-pass field evaluation through K3: (sdf (N,1), grads (N,3),
     rgb (N,3), lines3d (N,2,3)), differentiable w.r.t. the model's weights,
     the points and the directions. ``model`` holds the ``implicit``,
-    ``rendering`` and ``attraction`` layer stacks."""
+    ``rendering`` and ``attraction`` layer stacks.
+
+    When nothing is differentiated (grad mode off, or no operand requires
+    a gradient) it runs ``field_primal`` alone, no autograd node: in f32 the
+    3xTF32 kernel, where the pair under autograd runs the scalar forward
+    its backward re-runs."""
     cd = _DTYPES[compute_dtype]
-    flat_eff = _flatten_eff(model)
     if points.is_cuda and not supports_fused_field(icfg, rcfg, acfg):
         raise ValueError("fused field kernels take the canonical 8x256 / 4x256 architecture only")
-    sdf, grads, rgb, att = _FusedField.apply(icfg, rcfg, cd, points, dirs, *flat_eff)
+    if _differentiated(model, points, dirs):
+        flat_eff = _flatten_eff(model)
+        sdf, grads, rgb, att = _FusedField.apply(icfg, rcfg, cd, points, dirs, *flat_eff)
+    else:
+        flat_eff = resolved_operands(model, points, cd)
+        sdf, grads, rgb, att = field_primal(flat_eff, points, dirs, icfg, rcfg, cd)
     lines3d = points[..., None, :] + att.reshape(*points.shape[:-1], 2, 3)
     return sdf, grads, rgb, lines3d

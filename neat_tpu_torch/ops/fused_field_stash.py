@@ -86,6 +86,7 @@ from .fused_field import (
     _check_cotangents,
     _check_operands,
     _cotangents,
+    _differentiated,
     _entry,
     _flatten_eff,
     _head,
@@ -98,6 +99,7 @@ from .fused_field import (
     _split_param_grads,
     _unflatten_eff,
     field_primal,
+    resolved_operands,
     supports_fused_field,
 )
 
@@ -520,15 +522,22 @@ def pack_field_weights(flat_eff):
     ``pack_sdf_weights``' own buffer), then W_13 and W_18 transposed."""
     ws = [w.detach() for w in flat_eff[0::2]]
     bs = [b.detach().reshape(-1) for b in flat_eff[1::2]]
-    w_sdf, b_sdf = K1.pack_sdf_weights(ws[:8] + [ws[8][:, :1]], bs[:8] + [bs[8][:1]])
+    w_sdf, _ = K1.pack_sdf_weights(ws[:8] + [ws[8][:, :1]], bs[:8] + [bs[8][:1]])
     rest = torch.stack([_field_panel(ws, *p) for p in FIELD_PANELS[K1.N_PANELS :]])
     w = torch.cat([w_sdf, K1._swizzle(rest).reshape(-1), ws[13].T.reshape(-1), ws[18].T.reshape(-1)])
-    b = torch.zeros((FIELD_B_TOTAL,), dtype=b_sdf.dtype, device=b_sdf.device)
-    b[: K1.B_TOTAL] = b_sdf
+    return w, pack_field_biases(bs)
+
+
+def pack_field_biases(bs):
+    """The 19 biases (flat) as the tensor-core forwards read them:
+    (FIELD_B_TOTAL,), ``pack_sdf_biases``' buffer, then b_8's features and
+    the heads' biases in their slots."""
+    b = torch.zeros((FIELD_B_TOTAL,), dtype=bs[0].dtype, device=bs[0].device)
+    b[: K1.B_TOTAL] = K1.pack_sdf_biases(bs[:8] + [bs[8][:1]])
     b[B8F_OFF : B8F_OFF + 256] = bs[8][1:]
     for l, slot in B_SLOT.items():
         b[256 * slot : 256 * slot + bs[l].shape[0]] = bs[l]
-    return w, b
+    return b
 
 
 _FIELD_GATHER = {}  # device -> (weight positions, bias positions), built once
@@ -1080,13 +1089,12 @@ def fused_field_eval_stash(
     (``fused_field.field_primal``): no stash is written, no autograd node
     built, as the JAX op's primal does."""
     cd = _DTYPES[compute_dtype]
-    flat_eff = _flatten_eff(model)
     if points.is_cuda and not supports_fused_field(icfg, rcfg, acfg):
         raise ValueError("fused field kernels take the canonical 8x256 / 4x256 architecture only")
-    operands = (points, dirs, *flat_eff)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        sdf, grads, rgb, att = _FusedFieldStash.apply(icfg, rcfg, cd, *operands)
+    if _differentiated(model, points, dirs):
+        sdf, grads, rgb, att = _FusedFieldStash.apply(icfg, rcfg, cd, points, dirs, *_flatten_eff(model))
     else:
+        flat_eff = resolved_operands(model, points, cd)
         sdf, grads, rgb, att = field_primal(flat_eff, points, dirs, icfg, rcfg, cd)
     lines3d = points[..., None, :] + att.reshape(*points.shape[:-1], 2, 3)
     return sdf, grads, rgb, lines3d

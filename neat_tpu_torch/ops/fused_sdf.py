@@ -35,11 +35,25 @@ shared-memory image of 29 panels of 256 x 64 (transposed, rows swizzled as
 (``cp.async.bulk`` reporting to an ``mbarrier``) keep a ring of four panels
 full. Bias, softplus (``ex2.approx`` / ``lg2.approx``) and the rounding to
 bf16 run on the accumulator registers; the last layer (256 -> 1) is a dot
-product in layer 7's epilogue. The f32 instantiation keeps the scalar kernel
-(one thread per output column, 32-point tiles, f32 FMAs): TF32 would not
-hold its 1e-3 tolerance.
+product in layer 7's epilogue.
 
-Compute dtype: both kernels round where the JAX kernel rounds (each
+f32 (finalize, render eval and the mesh grid) runs the same design with f32
+operands as 3xTF32 products (``csrc/fused_sdf_tf32.cu``,
+``csrc/tf32_tile.cuh``; the split, the packed pairs of hi/lo panels and the
+CPU model of the products in ``tf32.py``). One TF32 product would not hold
+the 1e-3 tolerance: through ``fused_sdf_plain`` it puts the sdf 7.2e-4 of
+its scale off f64, where plain f32 is 4.9e-7. Three products, each pair of
+k16 summed by the tensor core, the pairs' sums added in f32 and the
+result moved one ulp away from zero (the expected loss of the tensor
+core's truncations), are 2.8e-7 off (tests/test_torch_tf32.py prints
+them; one accumulator for a whole layer, which rounds toward zero on every
+wgmma, would be 5.8e-6). The weights are split and packed once per weight
+set (``tf32.TensorCache``; ``fused_sdf_eval`` keeps the resolved weights of
+a net while its parameters stand). The scalar kernel of the first port (one
+thread per output column, 32-point tiles, f32 FMAs) stays as the f32
+"scalar" variant.
+
+Compute dtype: the kernels round where the JAX kernel rounds (each
 activation, the skip concat, the embedding and the weights), with f32
 accumulation, so they match ``fused_sdf_plain`` in both dtypes up to
 summation order (and, in bf16, the approximate softplus).
@@ -54,7 +68,7 @@ import torch
 
 from ..core.embedder import positional_encoding
 from ..fields.mlp import ImplicitNetConfig, LayerStack, _skip_concat, _softplus100
-from . import _build
+from . import _build, tf32
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -83,22 +97,23 @@ def _effective_weights(net: LayerStack, cfg: ImplicitNetConfig, dtype=torch.bflo
     return ws, bs
 
 
-def fused_sdf_plain(emb: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor]) -> torch.Tensor:
+def fused_sdf_plain(emb: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor], mm=None) -> torch.Tensor:
     """The kernel's math in plain torch: emb (N, 39) in the compute dtype
-    -> sdf_raw (N,) f32. Products are exact in f32 and summed in f32."""
+    -> sdf_raw (N,) f32. Products are exact in f32 and summed in f32.
+    ``mm(h, l)``: layer l's product h @ W_l in its place (``tf32`` models
+    the tensor cores' f32 products with it)."""
     cd = emb.dtype
     el = torch.promote_types(torch.float32, cd)
-
-    def mm(h, w, b):
-        return h.to(el) @ w.to(el) + b.to(el)
+    if mm is None:
+        mm = lambda h, l: h.to(el) @ ws[l].to(el)
 
     h = emb
     for l in range(4):
-        h = _softplus100(mm(h, ws[l], bs[l])).to(cd)
+        h = _softplus100(mm(h, l) + bs[l].to(el)).to(cd)
     h = _skip_concat(h, emb)
     for l in range(4, 8):
-        h = _softplus100(mm(h, ws[l], bs[l])).to(cd)
-    return mm(h, ws[8], bs[8])[:, 0]
+        h = _softplus100(mm(h, l) + bs[l].to(el)).to(cd)
+    return (mm(h, 8) + bs[8].to(el))[:, 0]
 
 
 # canonical (in, out) widths of the nine layers the kernel hard-codes
@@ -145,11 +160,17 @@ def pack_sdf_weights(ws: List[torch.Tensor], bs: List[torch.Tensor]):
         n_out = ws[l].shape[1]
         panels[4 * l - 3 : 4 * l + 1, :n_out] = ws[l].T.reshape(n_out, 4, PANEL_K).permute(1, 0, 2)
     w = torch.cat([_swizzle(panels).reshape(-1), ws[8][:, 0]])
-    b = torch.zeros((B_TOTAL,), dtype=bs[0].dtype, device=dev)
+    return w, pack_sdf_biases(bs)
+
+
+def pack_sdf_biases(bs: List[torch.Tensor]) -> torch.Tensor:
+    """The nine biases as the tensor-core kernels read them: (B_TOTAL,),
+    layer l < 8 at 256 * l (zero-padded), then b_8's sdf entry."""
+    b = torch.zeros((B_TOTAL,), dtype=bs[0].dtype, device=bs[0].device)
     for l in range(8):
         b[256 * l : 256 * l + bs[l].shape[0]] = bs[l]
     b[B8_OFF:] = bs[8]
-    return w, b
+    return b
 
 
 _GATHER = {}  # device -> (weight positions, bias positions), built once
@@ -216,8 +237,12 @@ _VARIANTS = {
     "wgmma": ("fused_sdf_fwd_bf16", True),  # what fused_sdf_kernel launches in bf16
     "wgmma_exact": ("fused_sdf_fwd_bf16_exact", True),  # the same with expf / log1pf
     "mma_sync": ("fused_sdf_fwd_bf16_mma_sync", True),  # the same, products by mma.sync
-    "scalar": ("fused_sdf_fwd_bf16_scalar", False),  # the CUDA-core kernel f32 still runs
+    "scalar": ("fused_sdf_fwd_bf16_scalar", False),  # the CUDA-core kernel of the first port
 }
+# the f32 kernels: "tf32", what fused_sdf_kernel launches (3xTF32 on the
+# tensor cores, csrc/fused_sdf_tf32.cu); "scalar", the first port's
+F32_VARIANTS = ("tf32", "scalar")
+_TF32_PACKED = tf32.TensorCache()  # the last weights the tf32 kernel was handed, split and packed
 
 
 def _launch(emb: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor], variant: str) -> torch.Tensor:
@@ -237,13 +262,18 @@ def _launch(emb: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor], v
     out = torch.empty((n,), dtype=torch.float32, device=emb.device)
     if n == 0:
         return out
-    name, packed = _VARIANTS[variant] if cd == torch.bfloat16 else ("fused_sdf_fwd_f32", False)
-    if packed:
-        w_all, b_all = pack_sdf_weights_gather([w.to(cd) for w in ws], [b.to(torch.float32) for b in bs])
+    if cd == torch.float32 and variant == "tf32":
+        lib, name = "fused_sdf_tf32", "fused_sdf_fwd_tf32"
+        w_all, b_all = _TF32_PACKED.get((*ws, *bs), lambda: tf32.pack_sdf_weights_tf32(ws, bs))
     else:
-        w_all = torch.cat([w.to(cd).reshape(-1) for w in ws])
-        b_all = torch.cat([b.to(torch.float32).reshape(-1) for b in bs])
-    fn = getattr(_build.load("fused_sdf"), name)
+        lib = "fused_sdf"
+        name, packed = _VARIANTS[variant] if cd == torch.bfloat16 else ("fused_sdf_fwd_f32", False)
+        if packed:
+            w_all, b_all = pack_sdf_weights_gather([w.to(cd) for w in ws], [b.to(torch.float32) for b in bs])
+        else:
+            w_all = torch.cat([w.to(cd).reshape(-1) for w in ws])
+            b_all = torch.cat([b.to(torch.float32).reshape(-1) for b in bs])
+    fn = getattr(_build.load(lib), name)
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(_build.ptr(emb), _build.ptr(w_all), _build.ptr(b_all), _build.ptr(out), n, _build.stream_ptr(emb))
@@ -253,8 +283,8 @@ def _launch(emb: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor], v
 
 def fused_sdf_kernel(emb: torch.Tensor, ws: List[torch.Tensor], bs: List[torch.Tensor]) -> torch.Tensor:
     """Launch K1 on CUDA tensors: emb (N, 39) bf16/f32 -> sdf_raw (N,) f32.
-    bf16 runs the tensor-core kernel, f32 the scalar one."""
-    out = _launch(emb, ws, bs, "wgmma")
+    bf16 runs the bf16 tensor-core kernel, f32 the 3xTF32 one."""
+    out = _launch(emb, ws, bs, "wgmma" if emb.dtype == torch.bfloat16 else "tf32")
     if emb.shape[0]:
         fused_sdf_kernel.launches += 1
     return out
@@ -264,12 +294,20 @@ fused_sdf_kernel.launches = 0
 
 
 def fused_sdf_kernel_variant(emb, ws, bs, variant: str) -> torch.Tensor:
-    """One of ``_VARIANTS`` on bf16 CUDA tensors, for holding the kernels
-    against each other on the card; nothing on the model's path calls it and
-    it is not counted."""
+    """One of ``_VARIANTS`` on bf16 CUDA tensors or of ``F32_VARIANTS`` on
+    f32 ones, for holding the kernels against each other on the card;
+    nothing on the model's path calls it and it is not counted. A bf16
+    kernel's name with f32 operands raises TypeError."""
+    if emb.dtype == torch.float32 and variant in F32_VARIANTS:
+        return _launch(emb, ws, bs, variant)
     if emb.dtype != torch.bfloat16:
-        raise TypeError("the kernel variants are bf16")
+        raise TypeError(f"{variant!r} is not a K1 variant for {emb.dtype}")
+    if variant not in _VARIANTS:
+        raise ValueError(f"no K1 variant {variant!r}")
     return _launch(emb, ws, bs, variant)
+
+
+_RESOLVED = tf32.TensorCache()  # the last net's f32 weights, resolved for the tf32 kernel
 
 
 @torch.no_grad()
@@ -283,7 +321,12 @@ def fused_sdf_eval(
     bf16, which is also this default."""
     cd = _DTYPES[compute_dtype]
     emb = positional_encoding(points, cfg.multires).to(cd).contiguous()
-    ws, bs = _effective_weights(net, cfg, cd)
+    if points.is_cuda and cd == torch.float32:
+        # the same tensors while the net's parameters stand, so the tf32
+        # kernel splits and packs them once
+        ws, bs = _RESOLVED.get(list(net.parameters()), lambda: _effective_weights(net, cfg, cd))
+    else:
+        ws, bs = _effective_weights(net, cfg, cd)
     if points.is_cuda:
         if not supports_fused_sdf(cfg):
             raise ValueError("fused_sdf kernel takes the canonical 8x256 skip-4 multires-6 SDF only")

@@ -18,7 +18,12 @@ sums it takes in chunks), and in relative L2 norm (f32
 over eight draws, in relative L2 norm off the crossings (1e-5), with every point
 that is off explained by one. K4 (and its first port): rays
 whose beta differs (one flipped ``err <= eps`` decision) may be 0.5% of the
-rays; the others agree to rtol 2e-4 / atol 2e-5.
+rays; the others agree to rtol 2e-4 / atol 2e-5. The f32 K1 and K3-fwd
+(3xTF32 on the tensor cores) are also held against the plain version in
+f64: each output's max |err| at most 1.5x plain f32's and 1.5x the scalar
+variant's against the same f64, or 2^-20 of the largest entry. In f32 the
+recompute pair's forward is the scalar tile (K3-bwd re-runs it), held to
+1e-5 of field_math and to K2-fwd.
 
 Every test draws its inputs from its own seeded generator.
 """
@@ -230,7 +235,8 @@ def test_k3_kernels_match_plain_and_k2(setup, cd):
     x, d, cots = _field_inputs(1000, seed=0)
     flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
     with torch.no_grad():
-        got = F.field_fwd_kernel(flat, x, d, icfg, cd)
+        # the pair's forward: in f32 the scalar tile, which K3-bwd re-runs
+        got = F.field_fwd_kernel(flat, x, d, icfg, cd, pair=True)
         ref = F.field_math(flat, x, d, icfg, rcfg, cd)
         k2 = K.field_fwd_stash_kernel(flat, x, d, icfg, cd)
         deff, dx, dd = F.field_bwd_kernel(flat, x, d, cots, icfg, cd)
@@ -396,6 +402,58 @@ def test_tensor_core_field_forwards_match_plain(setup, n_points, capsys):
             step = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(2.0 ** -126))) - 7)
             print(f"\nn={n_points} {name}: {int(((a - b).abs() > step).sum())} of {b.numel()} "
                   "entries more than one bf16 step off")
+
+
+def _f64_errors(outs, ref64):
+    return [float((a.double() - r).abs().max()) for a, r in zip(outs, ref64)]
+
+
+def _f32_routes(setup, kernel, n_points):
+    """The f32 kernel (3xTF32), its scalar variant, the plain version in
+    f32 and in f64, on inputs drawn from n_points."""
+    cfg, model = setup
+    icfg, rcfg = cfg.implicit, cfg.rendering
+    cd = torch.float32
+    with torch.no_grad():
+        if kernel == "k1":
+            pts = (torch.rand((n_points, 3), generator=_gen(n_points), device="cuda") * 2 - 1) * 3.0
+            emb = positional_encoding(pts, 6).contiguous()
+            ws, bs = _effective_weights(model.implicit, icfg, cd)
+            ws = [w.contiguous() for w in ws]
+            return ((fused_sdf_kernel(emb, ws, bs),), (fused_sdf_kernel_variant(emb, ws, bs, "scalar"),),
+                    (fused_sdf_plain(emb, ws, bs),),
+                    (fused_sdf_plain(emb.double(), [w.double() for w in ws], [b.double() for b in bs]),))
+        x, d, _ = _field_inputs(n_points, seed=n_points)
+        flat = tuple(w.detach().contiguous() for w in _flatten_eff(model))
+        return (F.field_fwd_kernel(flat, x, d, icfg, cd), F.field_fwd_kernel_variant(flat, x, d, icfg, cd, "scalar"),
+                F.field_math(flat, x, d, icfg, rcfg, cd),
+                F.field_math(tuple(t.double() for t in flat), x.double(), d.double(), icfg, rcfg, torch.float64))
+
+
+@pytest.mark.parametrize("sizes", [(1, 127, 128, 129, 1000), (100_352,)], ids=["ragged", "field_pass"])
+@pytest.mark.parametrize("kernel", ["k1", "k3"])
+def test_f32_tf32_kernels_match_plain_and_f64(setup, kernel, sizes, capsys):
+    """The f32 K1 and K3-fwd of finalize and render eval (3xTF32) against
+    the plain version (1e-3 of each output's scale) at each size, and
+    against the plain version in f64 beside the scalar variant: each
+    output's max |err| at most 1.5x plain f32's and 1.5x the scalar
+    variant's, or 2^-20 of the largest f64 entry, over the sizes' points
+    together (a single point's f32 error is a matter of chance at that
+    floor's scale)."""
+    errs = []  # per size: (kernel, scalar, plain) errors against f64, and the scale, of each output
+    for n in sizes:
+        got, scalar, plain, ref64 = _f32_routes(setup, kernel, n)
+        for a, s_, p in zip(got, scalar, plain):
+            assert a.shape == p.shape and bool(torch.isfinite(a).all())
+            assert _err(a, p) < TOL[torch.float32] and _err(s_, p) < TOL[torch.float32]
+        errs.append((_f64_errors(got, ref64), _f64_errors(scalar, ref64), _f64_errors(plain, ref64),
+                     [float(r.abs().max()) for r in ref64]))
+    worst = [list(map(max, zip(*route))) for route in zip(*errs)]  # the union of the sizes' points
+    for k, s_, p, scale in zip(*worst):
+        floor = 2.0 ** -20 * scale
+        assert k <= max(1.5 * p, floor) and k <= max(1.5 * s_, floor), (k, s_, p, floor)
+    with capsys.disabled():
+        print(f"\n{kernel} f32 n={sizes}: off f64, 3xTF32 {worst[0]}, scalar {worst[1]}, plain {worst[2]}")
 
 
 def _k4_inputs(rays, lanes, seed):

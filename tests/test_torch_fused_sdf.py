@@ -164,16 +164,20 @@ def test_stale_marks_exactly_the_sources_that_include_a_touched_header(tmp_path,
 
 def test_only_fused_sdf_depends_on_the_mma_header():
     """The tensor-core kernels (K1, the field forward, the split backward's
-    weight-gradient GEMM and its row-local pass) alone include
-    ``mma_tile.cuh``; none of them includes the scalar tile, and the scalar
-    field kernels do not reach the mma header."""
+    weight-gradient GEMM and its row-local pass, and the f32 K1 and field
+    forward through ``tf32_tile.cuh``) alone include ``mma_tile.cuh``; none
+    of them includes the scalar tile, the scalar field kernels do not reach
+    the mma header, and no bf16 kernel reaches the tf32 one."""
     reach = {name: {p.name for p in _build.dependencies(_build.CSRC / f"{name}.cu")} for name in _build.SOURCES}
     assert reach["fused_sdf"] == {"fused_sdf.cu", "common.cuh", "mma_tile.cuh"}
     assert reach["field_fwd_mma"] == {"field_fwd_mma.cu", "common.cuh", "mma_tile.cuh"}
     assert reach["field_dw_mma"] == {"field_dw_mma.cu", "mma_tile.cuh"}
     assert reach["field_bwd_mma"] == {"field_bwd_mma.cu", "common.cuh", "mma_tile.cuh"}
+    assert reach["fused_sdf_tf32"] == {"fused_sdf_tf32.cu", "tf32_tile.cuh", "common.cuh", "mma_tile.cuh"}
+    assert reach["field_fwd_tf32"] == {"field_fwd_tf32.cu", "tf32_tile.cuh", "common.cuh", "mma_tile.cuh"}
     assert [name for name in _build.SOURCES if "mma_tile.cuh" in reach[name]] == [
-        "fused_sdf", "field_fwd_mma", "field_dw_mma", "field_bwd_mma"]
+        "fused_sdf", "field_fwd_mma", "field_dw_mma", "field_bwd_mma", "fused_sdf_tf32", "field_fwd_tf32"]
+    assert [name for name in _build.SOURCES if "tf32_tile.cuh" in reach[name]] == ["fused_sdf_tf32", "field_fwd_tf32"]
     assert reach["fused_field"] == {"fused_field.cu", "field_tile.cuh", "common.cuh"}
     assert reach["fused_field_stash"] == {"fused_field_stash.cu", "field_tile.cuh", "common.cuh"}
     assert reach["fused_round"] == {"fused_round.cu"}
@@ -182,12 +186,17 @@ def test_only_fused_sdf_depends_on_the_mma_header():
 @pytest.mark.parametrize(
     "touched,stale",
     [
-        ("mma_tile.cuh", {"fused_sdf", "field_fwd_mma", "field_dw_mma", "field_bwd_mma"}),
+        ("mma_tile.cuh", {"fused_sdf", "field_fwd_mma", "field_dw_mma", "field_bwd_mma", "fused_sdf_tf32",
+                          "field_fwd_tf32"}),
         ("field_tile.cuh", {"fused_field_stash", "fused_field"}),
-        ("common.cuh", {"fused_sdf", "fused_field_stash", "fused_field", "field_fwd_mma", "field_bwd_mma"}),
+        ("common.cuh", {"fused_sdf", "fused_field_stash", "fused_field", "field_fwd_mma", "field_bwd_mma",
+                        "fused_sdf_tf32", "field_fwd_tf32"}),
         ("field_fwd_mma.cu", {"field_fwd_mma"}),
         ("field_dw_mma.cu", {"field_dw_mma"}),
         ("field_bwd_mma.cu", {"field_bwd_mma"}),
+        ("tf32_tile.cuh", {"fused_sdf_tf32", "field_fwd_tf32"}),
+        ("fused_sdf_tf32.cu", {"fused_sdf_tf32"}),
+        ("field_fwd_tf32.cu", {"field_fwd_tf32"}),
     ],
 )
 def test_stale_on_the_kernel_sources(tmp_path, touched, stale):
