@@ -13,6 +13,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only runner # build the main path's sources; the runner phase (7. below) alone
     python3 chip_smoke.py --only k4 # build fused_round.cu (+ K1 for the sampler run); K4's checks and timings
     python3 chip_smoke.py --only finalize # build K1's and K3's sources; a 1-epoch rundir, then 8. below
+    python3 chip_smoke.py --only dtu # build the main path's and the f32 sources; 9. below alone
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -123,6 +124,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    seconds of finalize (the distillation and the rest), of the rendered
    view and of the mesh, and the junction, line and eval_abc numbers,
    which it does not hold to anything (16 training steps).
+9. the DTU path (--only dtu alone): DBSCAN (assignment/clustering.py) on
+   the card against its run on the CPU, on 2048 seeded points (clumps,
+   noise, an eps-chain past the 64-iteration cap) and on the endpoints of
+   the DTU model's first step: the valid rows exactly, the means within
+   1e-6; a call's device ms and launches (profiler), host syncs, label
+   iterations and host ms at each host-check period. Then, through the
+   training CLI in this process, confs/abc/abc-1776.conf on a generated
+   ABC-layout scene (abc/00001776, 512 x 512, 8 views) and confs/dtu.conf
+   on a generated DTU-layout scene (DTU/scan65, the conf's 1200 x 1600, 16
+   views, every scale_mat a scale of 20 and an offset), --nepoch 1 each:
+   every loss finite, every step the main path's kernels; per step the
+   valid DBSCAN proposals, the junctions the 10 px gate kept, the
+   auctions' rounds, the host syncs; the median ms/step and rays/s; the
+   DTU scene's generation, load and encodels seconds and its bytes on the
+   device. 3 steps each with the l1 and the ssi depth term (the
+   generator's z-buffer as .npy cues, confs derived from dtu.conf under
+   build/chip_smoke/dtu). Then scripts/eval-neat-dtu.sh's order on the
+   dtu rundir: finalize --ckview 5 --ckdist 100, eval_lsr --mode
+   junctions and lines against a ground truth written from the
+   generator's geometry (an stl .ply, ObsMask and Plane .mat), render eval
+   --views 0 (1,875 chunks of 1024 rays, each the f32 K1 x5 and K3-fwd x1;
+   the mesh in the ground-truth frame), eval_dtu on that mesh: every
+   launch counted, every output there and finite, each CLI's seconds.
 
 It prints ms/step and rays/s, the card line and one ``kernels`` JSON line,
 and last ``{"ok": true, "device": {...}}``. Details go to
@@ -2029,6 +2053,27 @@ def _launched(fns, before):
     return {k: f.launches - before[k] for k, f in fns.items()}
 
 
+def time_calls(module, name, fns, timers):
+    """Wrap module.name: each call records its seconds (ending in a
+    synchronize) and the kernel launches it made in timers[name]. Returns
+    the original, which the caller puts back."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def wrapped(*a, **k):
+        before = {k2: f.launches for k2, f in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(*a, **k)
+        torch.cuda.synchronize()
+        timers[name] = {"s": time.perf_counter() - t0, "launches": _launched(fns, before)}
+        return res
+
+    setattr(module, name, wrapped)
+    return orig
+
+
 def field_lines_routes(model, cfg, scene, view):
     """view_field_lines of one view on the f32 kernels, on the plain
     versions in f32 and on the plain versions in f64 (a copy of the model
@@ -2230,29 +2275,15 @@ def finalize_phase(rundir, data_root):
     rec = {"rundir": rundir}
     timers = {}
 
-    def timed(module, name):
-        orig = getattr(module, name)
-
-        def wrapped(*a, **k):
-            before = {k2: f.launches for k2, f in fns.items()}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = orig(*a, **k)
-            torch.cuda.synchronize()
-            timers[name] = {"s": time.perf_counter() - t0, "launches": _launched(fns, before)}
-            return res
-
-        setattr(module, name, wrapped)
-        return orig
-
     # fused_sdf._launch(emb, ws, bs, variant); fused_field._fwd_launch(flat_eff, x, d, icfg, cd, variant)
     k1_key = lambda a: (a[0].shape[0], a[0].dtype, a[:3])
     k3_key = lambda a: (a[1].shape[0], a[4], a[:5])
     scene = load_scene_for_config(cfg, data_root, distance_threshold=1.0)
     chunks = sum(-(-int(m.sum()) // FIN_CHUNK) for m in scene.mask)
     rec["support"] = [int(m.sum()) for m in scene.mask]
-    origs = {"distill_views": timed(F, "distill_views"), "render_views_psnr": timed(RE, "render_views_psnr"),
-             "export_scene_mesh": timed(RE, "export_scene_mesh")}
+    origs = {"distill_views": time_calls(F, "distill_views", fns, timers),
+             "render_views_psnr": time_calls(RE, "render_views_psnr", fns, timers),
+             "export_scene_mesh": time_calls(RE, "export_scene_mesh", fns, timers)}
     try:
         with Recorder(fused_sdf, "_launch", k1_key) as k1, Recorder(fused_field, "_fwd_launch", k3_key) as k3:
             for f in fns.values():
@@ -2424,6 +2455,425 @@ def finalize_kernel_entries(fin):
 
 
 # ---------------------------------------------------------------------------
+# the dtu phase: DBSCAN junction proposals on the card, the per-scan ABC and
+# DTU confs through the training CLI, then the DTU evaluation
+# ---------------------------------------------------------------------------
+
+ABC_SCAN_CONF, ABC_SCAN, ABC_SCAN_VIEWS = os.path.join("confs", "abc", "abc-1776.conf"), os.path.join("abc", "00001776"), 8
+# dtu.conf's own 1200 x 1600; DTU's 49-64 views cut to 16
+DTU_CONF, DTU_VIEWS = os.path.join("confs", "dtu.conf"), 16
+# the ground-truth frame of the generated DTU scene: every view's scale_mat.
+# DTU's own are some 200-300 mm a unit; at that size eval_dtu's 0.2 mm mesh
+# sampling of a surface takes minutes on the host, at 20 about a second
+DTU_SCALE = ((20.0, 0.0, 0.0, 5.0), (0.0, 20.0, 0.0, -10.0), (0.0, 0.0, 20.0, 600.0), (0.0, 0.0, 0.0, 1.0))
+# DBSCAN: the step's 2048 endpoints; the label iterations between two host
+# checks that are timed; the means on the card against the CPU's (the sums
+# in another order)
+DBSCAN_N, DBSCAN_PERIODS, DBSCAN_MEANS_TOL = 2048, (1, 2, 4, 8, 16, 64), 1e-6
+DEPTH_STEPS = 3
+
+
+def dbscan_points(seed: int = 0):
+    """DBSCAN_N points from a numpy seed: 150 clumps of 2-10 points within
+    0.002 of a centre (some repeated exactly, as rays through one pixel
+    give) and isolated noise, in a random order, and in the middle an
+    eps-chain of 130 links in index order (past the 64-iteration cap; as
+    tests/test_sampling.py's chain, pointer jumping collapses it in about
+    log2(130) iterations). No pair lies within a relative 1e-4 of eps
+    unless it is a duplicate."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    pts = []
+    for c in rs.uniform(-1.5, 1.5, (150, 3)):
+        k = rs.randint(2, 11)
+        p = c + rs.uniform(-0.002, 0.002, (k, 3))
+        p[rs.rand(k) < 0.3] = p[0]
+        pts.append(p)
+    chain = np.zeros((130, 3)) + np.asarray([2.5, -2.5, -2.5])
+    chain[:, 0] += np.arange(130) * 0.009
+    pts = np.concatenate(pts)
+    pts = np.concatenate([pts, rs.uniform(-3.0, 3.0, (DBSCAN_N - len(pts) - len(chain), 3))])
+    pts = pts[rs.permutation(len(pts))]
+    pts = np.concatenate([pts[: len(pts) // 2], chain, pts[len(pts) // 2:]]).astype(np.float32)
+    d = np.sqrt(((pts[:, None].astype(np.float64) - pts[None]) ** 2).sum(-1))
+    require(not ((d > 0) & (np.abs(d - 0.01) < 1e-6)).any(), "dbscan: a pair of points on the eps threshold")
+    return pts
+
+
+def check_dbscan(name, pts):
+    """DBSCAN of pts (N, 3) on the card against its plain run on the CPU
+    (the same code): the valid rows (the representatives) exactly, the
+    means within DBSCAN_MEANS_TOL. Then, at each host-check period, a call's
+    device time and launches (profiler events over 5 calls), its host syncs
+    and label iterations, and its host ms (median of 10 calls)."""
+    import torch
+
+    from neat_tpu_torch.assignment import clustering as C
+
+    f = C.dbscan_cluster_means
+    cpu = pts.detach().float().cpu()
+    m_ref, v_ref = f(cpu)
+    dev = cpu.cuda()
+    m, v = f(dev)
+    torch.cuda.synchronize()
+    require(torch.equal(v.cpu(), v_ref), f"dbscan {name}: the valid rows differ from the CPU run's")
+    err = float((m.cpu()[v_ref] - m_ref[v_ref]).abs().max()) if bool(v_ref.any()) else 0.0
+    require(err <= DBSCAN_MEANS_TOL, f"dbscan {name}: means {err:.3g} off the CPU run's")
+    rec = {"n": int(cpu.shape[0]), "clusters": int(v_ref.sum()), "max_abs_err": err, "periods": {}}
+    for k in DBSCAN_PERIODS:
+        call = lambda k=k: f(dev, check_every=k)
+        call()
+        f.iterations = f.syncs = 0
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        it, syncs = f.iterations / 10, f.syncs / 10
+        prof = profile_calls(f"dbscan_{name}_{k}", call, 5, os.path.join(OUT_DIR, f"profile_dbscan_{name}_{k}.txt"))
+        rec["periods"][k] = {"iterations": it, "syncs": syncs, "host_ms": statistics.median(times),
+                             "device_ms": prof["device_busy_ms_per_step"], "launches": prof["launches_per_step"]}
+    # with a check after every iteration the loop stops where JAX's does
+    rec["converged_at"] = rec["periods"][1]["iterations"]
+    return rec
+
+
+def print_dbscan(r, card: str) -> None:
+    print(f"dbscan {r['name']}: {r['n']} points, {r['clusters']} clusters, the same valid rows on the card as "
+          f"on the CPU, means {r['max_abs_err']:.3g} off; labels converge in {r['converged_at']:.0f} "
+          f"iterations; {card}", flush=True)
+    for k, p in r["periods"].items():
+        print(f"  check every {k:2d}: {p['iterations']:.0f} iterations, {p['syncs']:.0f} host syncs, "
+              f"{p['launches']:.0f} launches, device {p['device_ms']:.3f} ms, host {p['host_ms']:.3f} ms a call",
+              flush=True)
+
+
+def conf_runner(label, conf, data_root, exps):
+    """neat_tpu_torch.train.runner.main on conf in this process, --nepoch 1
+    (2 epochs, a step per view each). Every step's loss must be finite and
+    every step must launch exactly the main path's kernels. Per step: the
+    valid DBSCAN proposals, the junctions the 10 px gate kept, each
+    auction's rounds, DBSCAN's label iterations and the host syncs of
+    DBSCAN and the auctions; the first step's endpoints are kept."""
+    import torch
+
+    import neat_tpu_torch.model.loss as NL
+    import neat_tpu_torch.model.neat as NM
+    import neat_tpu_torch.train.step as ST
+    from neat_tpu_torch.assignment.clustering import dbscan_cluster_means
+    from neat_tpu_torch.assignment.matching import auction_assignment
+    from neat_tpu_torch.train import runner as R
+
+    fns = counters()
+    expected = {k: PATHS["main"][1].get(k, 0) for k in fns}
+    rec, steps, cur = {"label": label}, [], {}
+    origs = {"run": R.TrainRunner.run, "db": NM.dbscan_cluster_means, "fwd": ST.neat_forward,
+             "model_auction": NM.masked_assignment, "loss_auction": NL.masked_assignment}
+
+    def db(points, *a, **k):
+        means, valid = origs["db"](points, *a, **k)
+        cur["valid"] = valid.sum()
+        rec.setdefault("endpoints", points.detach().clone())
+        return means, valid
+
+    def fwd(*a, **k):
+        out = origs["fwd"](*a, **k)
+        cur["kept"] = out["j_local_mask"].sum()
+        return out
+
+    def rounds_of(which):
+        def assign(*a, **k):
+            r0 = auction_assignment.rounds
+            res = origs[which](*a, **k)
+            cur[which] = auction_assignment.rounds - r0
+            return res
+
+        return assign
+
+    def run(self):
+        rec.update(rundir=self.rundir, load_s=self.load_seconds, n_views=self.n_views,
+                   support=[int(c) for c in self.scene.mask.sum(axis=1)],
+                   device_bytes=sum(t.numel() * t.element_size() for t in self.scene_dev.values()))
+        step_fn = self.step_fn
+
+        def counted(state, scene, gen):
+            before = {k: f.launches for k, f in fns.items()}
+            syncs0 = (dbscan_cluster_means.iterations, dbscan_cluster_means.syncs, auction_assignment.syncs)
+            cur.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, aux = step_fn(state, scene, gen)
+            loss = float(aux["loss"])
+            ms = (time.perf_counter() - t) * 1e3
+            s = {"ms": ms, "loss": loss, "launches": _launched(fns, before), "valid": int(cur["valid"]),
+                 "kept": int(cur["kept"]), "rounds": (cur["model_auction"], cur["loss_auction"]),
+                 "dbscan_iterations": dbscan_cluster_means.iterations - syncs0[0],
+                 "dbscan_syncs": dbscan_cluster_means.syncs - syncs0[1],
+                 "auction_syncs": auction_assignment.syncs - syncs0[2]}
+            steps.append(s)
+            require(math.isfinite(loss), f"{label}: non-finite loss {loss} at step {state.step}")
+            require(s["launches"] == expected, f"{label}: a step launched {s['launches']}, expected {expected}")
+            return state, aux
+
+        self.step_fn = counted
+        return origs["run"](self)
+
+    R.TrainRunner.run, NM.dbscan_cluster_means, ST.neat_forward = run, db, fwd
+    NM.masked_assignment, NL.masked_assignment = rounds_of("model_auction"), rounds_of("loss_auction")
+    try:
+        for f in fns.values():
+            f.launches = 0
+        R.main(["--conf", conf, "--data_root", data_root, "--exps_folder", exps, "--nepoch", "1"])
+    finally:
+        R.TrainRunner.run, NM.dbscan_cluster_means, ST.neat_forward = origs["run"], origs["db"], origs["fwd"]
+        NM.masked_assignment, NL.masked_assignment = origs["model_auction"], origs["loss_auction"]
+    require(len(steps) == 2 * rec["n_views"], f"{label}: {len(steps)} steps")
+    require(min(rec["support"]) > 0, f"{label}: a view has no support pixels: {rec['support']}")
+    ms = [s["ms"] for s in steps[1:]]
+    rec.update(steps=steps, median_ms=statistics.median(ms), q1_ms=statistics.quantiles(ms, n=4)[0],
+               q3_ms=statistics.quantiles(ms, n=4)[2])
+    return rec
+
+
+def print_conf_runner(r, card: str) -> None:
+    steps = r["steps"]
+    print(f"{r['label']}: {len(steps)} steps, losses {steps[0]['loss']:.4f} .. {steps[-1]['loss']:.4f}, launches "
+          f"per step {dict((k, v) for k, v in steps[0]['launches'].items() if v)}; median {r['median_ms']:.2f} ms/step "
+          f"(quartiles {r['q1_ms']:.2f} .. {r['q3_ms']:.2f}) over the steps after the first, "
+          f"{1024 / (r['median_ms'] / 1e3):.1f} rays/s; {card}", flush=True)
+    print(f"  per step: valid DBSCAN proposals {[s['valid'] for s in steps]}", flush=True)
+    print(f"  junctions the 10 px gate kept {[s['kept'] for s in steps]}", flush=True)
+    print(f"  auction rounds (the proposals', the loss's) {[s['rounds'] for s in steps]}", flush=True)
+    print(f"  DBSCAN label iterations {[s['dbscan_iterations'] for s in steps]}, host syncs of DBSCAN "
+          f"{[s['dbscan_syncs'] for s in steps]} and of the auctions {[s['auction_syncs'] for s in steps]}",
+          flush=True)
+    print(f"  ms per step {[round(s['ms'], 1) for s in steps]}", flush=True)
+
+
+def depth_steps(kind, conf_path, data_root, exps):
+    """DEPTH_STEPS training steps with the depth term on (conf_path: dtu.conf
+    with dataset.depth_dir and loss.depth_weight / depth_loss_kind), through
+    the runner's own step: finite losses, a depth term above 0, the main
+    path's kernels."""
+    import torch
+
+    from neat_tpu_torch.train import runner as R
+    from neat_tpu_torch.train.step import step_generator
+
+    fns = counters()
+    expected = {k: PATHS["main"][1].get(k, 0) for k in fns}
+    t0 = time.perf_counter()
+    r = R.TrainRunner(conf=conf_path, data_root=data_root, exps_folder=exps, nepochs=1)
+    rec = {"kind": kind, "load_s": time.perf_counter() - t0, "losses": [], "depth_losses": [], "ms": []}
+    try:
+        require("depth" in r.scene_dev and r.cfg.loss.depth_loss_kind == kind and r.cfg.loss.depth_weight > 0,
+                f"depth {kind}: the runner has no depth cues or no depth term")
+        for _ in range(DEPTH_STEPS):
+            before = {k: f.launches for k, f in fns.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r.state, aux = r.step_fn(r.state, r.scene_dev, step_generator(0, 0, r.state.step, r.device))
+            loss, depth_loss = float(aux["loss"]), float(aux["depth_loss"])
+            rec["ms"].append((time.perf_counter() - t) * 1e3)
+            rec["losses"].append(loss)
+            rec["depth_losses"].append(depth_loss)
+            require(math.isfinite(loss) and math.isfinite(depth_loss) and depth_loss > 0,
+                    f"depth {kind}: loss {loss}, depth term {depth_loss}")
+            require(_launched(fns, before) == expected, f"depth {kind}: a step launched {_launched(fns, before)}")
+    finally:
+        r.close()
+    return rec
+
+
+def dtu_pipeline(rundir, data_root, eval_dir, scan):
+    """scripts/eval-neat-dtu.sh's order through the port's CLIs in this
+    process: finalize (--ckview 5 --ckdist 100), eval_lsr in its junction
+    and line modes against the generated ground truth (with the scene's
+    scale_mat), render eval of view 0 with the mesh in the ground-truth
+    frame, eval_dtu on that mesh. Launches counted: each field chunk of
+    finalize and of the render runs the f32 K1 5 times and the f32 K3-fwd
+    once, the mesh grid K1 alone; every output there and finite."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    import neat_tpu_torch.evaluation.eval_dtu as ED
+    import neat_tpu_torch.evaluation.eval_lsr as EL
+    import neat_tpu_torch.evaluation.render_eval as RE
+    import neat_tpu_torch.wireframe.finalize as F
+    from neat_tpu_torch.train.config import load_experiment_config
+    from neat_tpu_torch.viz.mesh import load_ply
+
+    conf = os.path.join(rundir, "runconf.conf")
+    cfg = load_experiment_config(conf)
+    rounds = cfg.model.sampler.max_total_iters
+    fns = counters()
+    rec, timers = {}, {}
+
+    def cli(name, fn, args):
+        before = {k: f.launches for k, f in fns.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(args)
+        torch.cuda.synchronize()
+        rec[f"{name}_s"] = time.perf_counter() - t0
+        rec[f"{name}_launches"] = _launched(fns, before)
+        return out
+
+    results = cli("finalize", F.main, ["--conf", conf, "--checkpoint", "latest", "--data_root", data_root,
+                                       "--ckview", "5", "--ckdist", "100"])
+    wdir = os.path.join(rundir, "wireframes")
+    wfc = sorted(glob.glob(os.path.join(wdir, "*-wfi_checked.npz")), key=os.path.getmtime)
+    require(len(wfc) == 1, f"finalize: {len(wfc)} -wfi_checked.npz files")
+    arrays = {k: v for k, v in results.items() if isinstance(v, np.ndarray)}
+    for path in glob.glob(os.path.join(wdir, "*.npz")):
+        with np.load(path) as z:
+            arrays.update({f"{os.path.basename(path)}:{k}": z[k] for k in z.files})
+    for key, a in arrays.items():
+        require(bool(np.isfinite(a).all()), f"finalize: non-finite {key}")
+    fl = rec["finalize_launches"]
+    require(fl["field_fwd"] > 0 and fl["fused_sdf"] == rounds * fl["field_fwd"]
+            and sum(fl.values()) == fl["fused_sdf"] + fl["field_fwd"],
+            f"finalize launched {fl}, expected the f32 K1 x{rounds} and K3-fwd x1 a chunk")
+    rec.update(junctions=int(results["junctions3d_initial"].shape[0]), lines_all=int(results["lines3d_all"].shape[0]),
+               lines_wfi_checked=int(results["lines3d_wfi_checked"].shape[0]))
+    cams = os.path.join(data_root, cfg.data_dir, f"scan{scan}", "cameras.npz")
+    for mode in ("junctions", "lines"):
+        out = cli(f"eval_lsr_{mode}", EL.main, ["--mode", mode, "--data", wfc[0], "--scan", str(scan),
+                                                "--dataset_dir", eval_dir, "--cameras", cams])
+        rec[f"eval_lsr_{mode}"] = out
+        if rec["lines_wfi_checked"]:
+            require(all(math.isfinite(v) for v in out.values()), f"eval_lsr {mode}: {out}")
+    origs = {name: time_calls(RE, name, fns, timers) for name in ("render_views_psnr", "export_scene_mesh")}
+    try:
+        rec["render_eval"] = cli("render_eval", RE.main, ["--conf", conf, "--checkpoint", "latest", "--data_root",
+                                                          data_root, "--views", "0"])
+    finally:
+        for name, orig in origs.items():
+            setattr(RE, name, orig)
+    h, w = cfg.img_res
+    render_chunks, mesh_chunks = -(-h * w // RENDER_CHUNK), -(-MESH_RES ** 3 // MESH_CHUNK)
+    rec["render_s"], rec["mesh_s"] = timers["render_views_psnr"]["s"], timers["export_scene_mesh"]["s"]
+    expect = lambda **kw: dict.fromkeys(fns, 0) | kw
+    for what, got, want in (
+        ("render", timers["render_views_psnr"]["launches"],
+         expect(fused_sdf=rounds * render_chunks, field_fwd=render_chunks)),
+        ("mesh", timers["export_scene_mesh"]["launches"], expect(fused_sdf=mesh_chunks)),
+    ):
+        require(got == want, f"dtu {what} launched {got}, expected {want}")
+    rec["render_chunks"] = render_chunks
+    mesh = rec["render_eval"]["mesh"]
+    verts, faces = load_ply(mesh)
+    require(len(verts) > 0 and bool(np.isfinite(verts).all()), "render eval: an empty or non-finite mesh")
+    require(math.isfinite(rec["render_eval"]["psnr_mean"]), "render eval: non-finite PSNR")
+    ev = os.path.dirname(mesh)
+    for name in ("psnr.csv", "eval_000.png", "normal_000.png"):
+        require(os.path.exists(os.path.join(ev, name)), f"render eval: no evaluation/{name}")
+    rec.update(mesh_verts=len(verts), mesh_faces=len(faces))
+    rec["eval_dtu"] = cli("eval_dtu", ED.main, ["--data", mesh, "--scan", str(scan), "--dataset_dir", eval_dir])
+    require(all(math.isfinite(v) for v in rec["eval_dtu"].values()), f"eval_dtu: {rec['eval_dtu']}")
+    return rec
+
+
+def print_dtu_pipeline(r, card: str) -> None:
+    num = lambda d: ", ".join(f"{k} {v:.4g}" for k, v in d.items())
+    print(f"dtu finalize: {r['finalize_s']:.2f} s, launches {r['finalize_launches']['fused_sdf']} K1 f32, "
+          f"{r['finalize_launches']['field_fwd']} K3-fwd f32, nothing else; {r['junctions']} junctions, "
+          f"{r['lines_all']} lines, {r['lines_wfi_checked']} wfi_checked; {card}", flush=True)
+    for mode in ("junctions", "lines"):
+        print(f"dtu eval_lsr --mode {mode}: {r[f'eval_lsr_{mode}_s']:.2f} s; {num(r[f'eval_lsr_{mode}'])}", flush=True)
+    print(f"dtu render eval: view 0 in {r['render_s']:.2f} s ({r['render_chunks']} chunks; "
+          f"{r['render_eval_launches']['fused_sdf']} K1 f32, {r['render_eval_launches']['field_fwd']} K3-fwd f32 "
+          f"with the mesh), PSNR {r['render_eval']['psnr_mean']:.3f}; mesh {r['mesh_s']:.2f} s, {r['mesh_verts']} "
+          f"vertices, {r['mesh_faces']} faces; the CLI {r['render_eval_s']:.2f} s; {card}", flush=True)
+    print(f"dtu eval_dtu: {r['eval_dtu_s']:.2f} s; {num(r['eval_dtu'])}", flush=True)
+
+
+def dtu_phase():
+    """DBSCAN on the card against the CPU (2048 seeded points, and the
+    endpoints of the DTU model's first step), abc-1776.conf and dtu.conf
+    through the training CLI on generated scenes, 3 steps each with the
+    l1 and the ssi depth term, and the DTU evaluation on the dtu run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from neat_tpu_torch.data.datasets import load_scene_for_config
+    from neat_tpu_torch.data.encodels import build_native, encode_line_attraction
+    from neat_tpu_torch.data.synthetic import generate_scene, write_dtu_groundtruth
+    from neat_tpu_torch.train.config import dump_hocon, load_experiment_config, parse_hocon, put_path
+
+    work = os.path.join(OUT_DIR, "dtu")
+    shutil.rmtree(work, ignore_errors=True)
+    data_root, exps, eval_dir = (os.path.join(work, d) for d in ("data", "exps", "eval"))
+    card = card_line()
+    rec = {"dbscan": []}
+    build_native()
+    r = check_dbscan("seeded", torch.from_numpy(dbscan_points()))
+    rec["dbscan"].append(dict(r, name="seeded"))
+
+    # abc-1776 on a generated ABC-layout scene
+    conf = os.path.join(REPO, ABC_SCAN_CONF)
+    cfg = load_experiment_config(conf)
+    require(cfg.data_dir == ABC_SCAN, f"{ABC_SCAN_CONF} names {cfg.data_dir}")
+    generate_scene(os.path.join(data_root, ABC_SCAN), n_views=ABC_SCAN_VIEWS, res=tuple(cfg.img_res), seed=0)
+    rec["abc"] = conf_runner("abc-1776", conf, data_root, exps)
+
+    # dtu.conf on a generated DTU-layout scene at the conf's own size
+    conf = os.path.join(REPO, DTU_CONF)
+    cfg = load_experiment_config(conf)
+    scan_dir = os.path.join(data_root, cfg.data_dir, f"scan{cfg.scan_id}")
+    t0 = time.perf_counter()
+    generate_scene(scan_dir, n_views=DTU_VIEWS, res=tuple(cfg.img_res), seed=0, convention="dtu",
+                   scale_mat=np.asarray(DTU_SCALE), depth_dir="depth")
+    rec["dtu_generate_s"] = time.perf_counter() - t0
+    write_dtu_groundtruth(eval_dir, cfg.scan_id, np.asarray(DTU_SCALE))
+    rec["dtu"] = conf_runner("dtu", conf, data_root, exps)
+    scene = load_scene_for_config(cfg, data_root)
+    t0 = time.perf_counter()
+    for v in range(scene.n_images):
+        encode_line_attraction(scene.lines[v, : scene.n_lines[v]], *scene.img_res, backend="native")
+    rec["dtu_encodels_s"] = time.perf_counter() - t0
+    del scene
+    r = check_dbscan("dtu_step", rec["dtu"].pop("endpoints"))
+    rec["dbscan"].append(dict(r, name="dtu step's endpoints"))
+    rec["abc"].pop("endpoints")
+    with open(conf) as f:
+        text = f.read()
+    for kind in ("l1", "ssi"):
+        raw = parse_hocon(text)
+        put_path(raw, "dataset.depth_dir", "depth")
+        put_path(raw, "loss.depth_weight", 0.1)
+        put_path(raw, "loss.depth_loss_kind", kind)
+        path = os.path.join(work, f"dtu_depth_{kind}.conf")
+        with open(path, "w") as f:
+            f.write(dump_hocon(raw))
+        rec[f"depth_{kind}"] = depth_steps(kind, path, data_root, exps)
+    rec["pipeline"] = dtu_pipeline(rec["dtu"]["rundir"], data_root, eval_dir, cfg.scan_id)
+    for r in rec["dbscan"]:
+        print_dbscan(r, card)
+    print_conf_runner(rec["abc"], card)
+    d = rec["dtu"]
+    print(f"dtu scene: {d['n_views']} views of {cfg.img_res[0]} x {cfg.img_res[1]} (DTU's 49-64 views cut to "
+          f"{DTU_VIEWS}), generated in {rec['dtu_generate_s']:.2f} s, loaded in {d['load_s']:.2f} s (encodels "
+          f"{rec['dtu_encodels_s']:.2f} s of it, native), {d['device_bytes'] / 1e9:.3f} GB on the device; support "
+          f"pixels per view {d['support']}", flush=True)
+    print_conf_runner(d, card)
+    for kind in ("l1", "ssi"):
+        r = rec[f"depth_{kind}"]
+        print(f"dtu depth term {kind}: {DEPTH_STEPS} steps, losses {[round(x, 4) for x in r['losses']]}, depth "
+              f"terms {[round(x, 4) for x in r['depth_losses']]}, ms {[round(x, 1) for x in r['ms']]}; the "
+              f"runner's set-up {r['load_s']:.2f} s", flush=True)
+    print_dtu_pipeline(rec["pipeline"], card)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 # --only <kernel>: the libraries that kernel's checks build (the kernel's
 # own and the scalar kernel it is held against; for K4, K1's, which the
@@ -2434,7 +2884,9 @@ ONLY = {"k1": ("fused_sdf", "fused_sdf_tf32"), "k2": ("field_fwd_mma", "fused_fi
         "k3b": ("field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field"),
         "runner": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma"),
         "k4": ("fused_round", "fused_sdf"),
-        "finalize": ("fused_sdf", "fused_field", "fused_sdf_tf32", "field_fwd_tf32")}
+        "finalize": ("fused_sdf", "fused_field", "fused_sdf_tf32", "field_fwd_tf32"),
+        "dtu": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field",
+                "fused_sdf_tf32", "field_fwd_tf32")}
 
 
 def print_runner(r, card: str) -> None:
@@ -2518,6 +2970,8 @@ def main() -> int:
             print_k4(report["k4"])
         elif args.only == "finalize":
             report["finalize"] = finalize_phase(*finalize_rundir())
+        elif args.only == "dtu":
+            report["dtu"] = dtu_phase()
         elif args.only == "k3b":
             report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k3b"]:
@@ -2620,6 +3074,7 @@ def main() -> int:
         report["runner"] = runner_phase(os.path.join(OUT_DIR, "profile_runner.txt") if args.profile else None)
         print_runner(report["runner"], card)
         report["finalize"] = finalize_phase(report["runner"]["rundir"], report["runner"]["data_root"])
+        report["dtu"] = dtu_phase()
         t1, t3 = k1[0], k3[-1]
         src = "neat_tpu_torch/csrc/"
         kernels = [

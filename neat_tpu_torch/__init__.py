@@ -37,7 +37,10 @@ Every Pallas kernel of the JAX package is hand-written CUDA C++ for
                                   (``fused_round.cu``, opt-in).
 
 A training step of the canonical configuration on the card launches K1
-five times, K2-fwd, the row-local pass and the GEMM once each. Each
+five times, K2-fwd, the row-local pass and the GEMM once each; the DBSCAN
+confs (the per-scan ABC confs, dtu.conf, bmvs.conf) also cluster the
+step's line endpoints on the device in plain tensor operations
+(``assignment/clustering.py``). Each
 wrapper launches its kernel for a CUDA tensor and runs the plain PyTorch
 version of the same math only for a CPU tensor (what the CPU tests use);
 there is no fallback from one to the other.

@@ -9,7 +9,8 @@ for a single live column. Padded rows and columns are masked out.
 The loop runs up to ``n_iters`` rounds and stops when every live row is
 assigned. Once that holds a round changes nothing, so the stop test is made
 every ``_CHECK_EVERY`` rounds with the same result; that test is the
-loop's only host sync.
+loop's only host sync. ``auction_assignment.rounds`` and ``.syncs`` count
+the rounds run and the host checks since they were last set to 0.
 The scipy ``callback`` mode waits for a later slice.
 """
 
@@ -92,14 +93,20 @@ def auction_assignment(
 
     it = 0
     while it < n_iters:
+        auction_assignment.syncs += 1
         if not bool(torch.any(row_mask & (col_of_row < 0))):
             break
         for _ in range(min(_CHECK_EVERY, n_iters - it)):
             prices, owner_of_col, col_of_row = body(prices, owner_of_col, col_of_row)
             it += 1
+    auction_assignment.rounds += it
     safe_col = torch.where(col_of_row >= 0, col_of_row, 0)
     valid = row_mask & (col_of_row >= 0) & col_mask[safe_col]
     return torch.where(valid, col_of_row, 0).to(torch.int32), valid, it
+
+
+auction_assignment.rounds = 0
+auction_assignment.syncs = 0
 
 
 def masked_assignment(

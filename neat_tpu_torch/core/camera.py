@@ -103,3 +103,39 @@ def psnr(img1, img2, normalize_rgb: bool = False):
         img2 = (img2 + 1.0) / 2.0
     mse = torch.mean((img1 - img2) ** 2)
     return -10.0 * torch.log(mse) / torch.log(torch.tensor(10.0, dtype=mse.dtype))
+
+
+def load_k_rt_from_p(p):
+    """Decompose a 3x4 projection matrix P = K [R | t] -> (intrinsics 4x4,
+    cam2world 4x4), both float32 (numpy; the DTU loader's cameras). An RQ
+    decomposition with a positive diagonal of K; the camera centre comes
+    from P itself, -M^-1 p4, which no sign choice changes."""
+    import numpy as np
+
+    p = np.asarray(p, dtype=np.float64)[:3, :4]
+    k, r = _rq3(p[:, :3])
+    sgn = np.diag(np.sign(np.diag(k)))
+    k = k @ sgn
+    r = sgn @ r
+    if np.linalg.det(r) < 0:
+        r = -r
+    c = -np.linalg.solve(p[:, :3], p[:, 3])
+    k = k / k[2, 2]
+
+    intrinsics = np.eye(4)
+    intrinsics[:3, :3] = k
+    pose = np.eye(4)
+    pose[:3, :3] = r.T
+    pose[:3, 3] = c
+    return intrinsics.astype(np.float32), pose.astype(np.float32)
+
+
+def _rq3(a):
+    """RQ decomposition of a 3x3 matrix through a QR of its flipped
+    transpose."""
+    import numpy as np
+
+    q, r = np.linalg.qr(np.flipud(a).T)
+    r = np.flipud(r.T)[:, ::-1]
+    q = np.flipud(q.T)
+    return r, q

@@ -1,5 +1,6 @@
-"""Scene loading for the ABC (blender) convention (port of the blender parts
-of neat_tpu/data/datasets.py, numpy only).
+"""Scene loading for the ABC (blender) and DTU / BlendedMVS conventions
+(port of the blender and DTU parts of neat_tpu/data/datasets.py, numpy
+only).
 
 A whole scene is packed into fixed-shape arrays (views x pixels) that
 ``train/step.py:scene_to_device`` moves to the device once; each step then
@@ -8,9 +9,11 @@ common length by wrapping, for uniform draws with replacement. Every packed
 array equals the JAX package's bit for bit (tests/test_torch_data.py).
 
 Ported kinds: ``blender``/``abc`` (cameras.npz{intrinsics, extrinsics}
-with cam2world extrinsics, hawp/*.json wireframes) and ``blender_plain``
-(no wireframes, every pixel trainable). The DTU, ScanNet and scene_line
-kinds raise ``NotImplementedError``.
+with cam2world extrinsics, hawp/*.json wireframes), ``blender_plain`` (no
+wireframes, every pixel trainable), ``dtu``/``scene``
+(cameras.npz{world_mat_i, scale_mat_i}, P = world_mat @ scale_mat
+decomposed into K and cam2world, optional depth cues) and ``dtu_plain``.
+The ScanNet and scene_line kinds raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..core.camera import load_k_rt_from_p
 from .encodels import attraction_support
 from .png import read_png
 from .wireframe import WireframeGraph
@@ -82,7 +86,7 @@ class SceneData:
     support_idx: Optional[np.ndarray] = None  # (V, S_max) int32
     support_count: Optional[np.ndarray] = None  # (V,) int32
 
-    # depth cues: only the DTU-family loaders, not ported, fill it
+    # per-pixel depth cues of the DTU loader's ``depth_dir``
     depth: Optional[np.ndarray] = None  # (V, H*W) float32
 
     view_ids: Optional[np.ndarray] = None  # original image indices kept
@@ -173,6 +177,23 @@ def _pack_wireframes(
     return lines, n_lines, verts2d, verts_mask, masks, labels, uv_proj, support_idx, counts
 
 
+def _attach_wireframes(scene, wireframes, lines_list, distance_threshold, max_verts, backend) -> None:
+    """Fill a scene's wireframe tables (``_pack_wireframes``) and its
+    low-threshold line set."""
+    (
+        scene.lines,
+        scene.n_lines,
+        scene.verts2d,
+        scene.verts_mask,
+        scene.mask,
+        scene.labels,
+        scene.uv_proj,
+        scene.support_idx,
+        scene.support_count,
+    ) = _pack_wireframes(wireframes, lines_list, scene.img_res, distance_threshold, max_verts, backend)
+    scene.lines_lo, scene.n_lines_lo = _pack_lines([wf.line_segments(0.01) for wf in wireframes])
+
+
 def load_blender_scene(
     data_dir: str,
     img_res: Tuple[int, int],
@@ -236,43 +257,135 @@ def load_blender_scene(
         view_ids=np.asarray(valid_ids, dtype=np.int32),
     )
     if with_wireframes:
-        (
-            scene.lines,
-            scene.n_lines,
-            scene.verts2d,
-            scene.verts_mask,
-            scene.mask,
-            scene.labels,
-            scene.uv_proj,
-            scene.support_idx,
-            scene.support_count,
-        ) = _pack_wireframes(
-            wireframes, lines_list, tuple(img_res), distance_threshold,
-            max_verts, encodels_backend,
-        )
-        scene.lines_lo, scene.n_lines_lo = _pack_lines(
-            [wf.line_segments(0.01) for wf in wireframes]
+        _attach_wireframes(scene, wireframes, lines_list, distance_threshold, max_verts, encodels_backend)
+    return scene
+
+
+def resize_nearest(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Nearest-neighbour resize of an (H, W[, C]) array to (h, w) by
+    OpenCV's INTER_NEAREST rule (the card machine has no OpenCV): output
+    row y reads source row min(floor(y * (1 / (h / H))), H - 1), in double
+    precision as OpenCV computes it, and columns alike. That is
+    floor(y * H / h) except where the double product falls just short of
+    an integer (H = 6, h = 34, y = 17 reads row 2, not 3)."""
+    src_h, src_w = img.shape[:2]
+    ys = np.minimum(np.floor(np.arange(h) * (1.0 / (h / src_h))).astype(np.int64), src_h - 1)
+    xs = np.minimum(np.floor(np.arange(w) * (1.0 / (w / src_w))).astype(np.int64), src_w - 1)
+    return img[ys[:, None], xs[None, :]]
+
+
+def _load_depth_maps(depth_dir: str, image_paths, valid_ids, img_res):
+    """Per-view depth cues, (V, H*W) float32: <stem>.npy, <stem>_depth.npy
+    or COLMAP's <stem>.{png,jpg}.geometric.bin, resized to ``img_res`` by
+    ``resize_nearest`` where their size differs."""
+    from ..colmap_tools.depth import read_array
+
+    h, w = img_res
+    out = []
+    for i in valid_ids:
+        stem = osp.splitext(osp.basename(image_paths[i]))[0]
+        cand = [
+            osp.join(depth_dir, stem + ".npy"),
+            osp.join(depth_dir, stem + "_depth.npy"),
+            osp.join(depth_dir, stem + ".png.geometric.bin"),
+            osp.join(depth_dir, stem + ".jpg.geometric.bin"),
+        ]
+        path = next((p for p in cand if osp.exists(p)), None)
+        if path is None:
+            raise FileNotFoundError(f"no depth cue for {stem} in {depth_dir}")
+        d = np.load(path) if path.endswith(".npy") else read_array(path)
+        d = np.asarray(d, np.float32)
+        if d.shape[:2] != (h, w):
+            d = resize_nearest(d, h, w)
+        out.append(d.reshape(-1))
+    return np.stack(out)
+
+
+def load_dtu_scene(
+    data_dir: str,
+    img_res: Tuple[int, int],
+    scan_id: int = 0,
+    data_root: str = "../data",
+    line_detector: str = "hawp",
+    distance_threshold: float = 10.0,
+    score_threshold: float = 0.05,
+    with_wireframes: bool = True,
+    max_verts: Optional[int] = None,
+    encodels_backend: str = "native",
+    depth_dir: Optional[str] = None,
+) -> SceneData:
+    """DTU/BMVS-style scene ``<data_root>/<data_dir>/scan<scan_id>``:
+    images in image/ (or images/), cameras.npz{world_mat_i, scale_mat_i}
+    with P = world_mat @ scale_mat decomposed into K and cam2world, and
+    hawp/*.json; a view with no wireframe file, or whose wireframe has no
+    vertex, no edge or no line above ``score_threshold``, is dropped.
+    ``depth_dir`` (relative to the scan directory, or absolute) adds the
+    per-view depth cues."""
+    instance_dir = osp.join(data_root, data_dir, f"scan{scan_id}")
+    if not osp.exists(instance_dir):
+        raise FileNotFoundError(f"Data directory {instance_dir} is empty")
+
+    image_paths = _glob_imgs(osp.join(instance_dir, "image")) or _glob_imgs(osp.join(instance_dir, "images"))
+    n_all = len(image_paths)
+    cam = np.load(osp.join(instance_dir, "cameras.npz"))
+    scale_mats = [cam[f"scale_mat_{i}"].astype(np.float64) for i in range(n_all)]
+    world_mats = [cam[f"world_mat_{i}"].astype(np.float64) for i in range(n_all)]
+    cams = [load_k_rt_from_p((wm @ sm)[:3, :4]) for sm, wm in zip(scale_mats, world_mats)]
+
+    rgbs, wireframes, lines_list, valid_ids = [], [], [], []
+    for i, path in enumerate(image_paths):
+        if with_wireframes:
+            hawp_path = osp.join(instance_dir, line_detector, osp.splitext(osp.basename(path))[0] + ".json")
+            if not osp.exists(hawp_path):
+                continue
+            wf = WireframeGraph.load_json(hawp_path)
+            if wf.num_vertices == 0 or wf.num_edges == 0:
+                continue
+            ln = wf.line_segments(score_threshold)
+            if ln.shape[0] == 0:
+                continue
+            wireframes.append(wf)
+            lines_list.append(ln)
+        img = _load_rgb(path)
+        if img.shape[:2] != tuple(img_res):
+            raise ValueError(f"{path}: image {img.shape} vs conf img_res {img_res}")
+        rgbs.append(img.reshape(-1, 3))
+        valid_ids.append(i)
+
+    scene = SceneData(
+        rgb=np.stack(rgbs),
+        intrinsics=np.stack([cams[i][0] for i in valid_ids]),
+        pose=np.stack([cams[i][1] for i in valid_ids]),
+        img_res=tuple(img_res),
+        scale_mat=scale_mats[0].astype(np.float32),
+        view_ids=np.asarray(valid_ids, dtype=np.int32),
+    )
+    if with_wireframes:
+        _attach_wireframes(scene, wireframes, lines_list, distance_threshold, max_verts, encodels_backend)
+    if depth_dir is not None:
+        scene.depth = _load_depth_maps(
+            osp.join(instance_dir, depth_dir), image_paths, valid_ids, tuple(img_res)
         )
     return scene
 
 
-_LOADERS = {"blender": load_blender_scene, "abc": load_blender_scene}
+_LOADERS = {"blender": load_blender_scene, "abc": load_blender_scene, "dtu": load_dtu_scene,
+            "scene": load_dtu_scene}
 # kinds of the JAX package that are not ported yet -> their ROADMAP.md §1 item
-_UNPORTED = {"dtu": "DTU path", "scene": "DTU path", "dtu_plain": "DTU path", "scannet": "data",
-             "scene_line": "data"}
+_UNPORTED = {"scannet": "data", "scene_line": "data"}
 
 
 def _check_ported(kind: str) -> None:
     if kind in _UNPORTED:
         raise NotImplementedError(
             f"scene kind {kind!r} is not ported yet (ROADMAP.md §1, {_UNPORTED[kind]}); "
-            "blender, abc and blender_plain load"
+            "blender, abc, blender_plain, dtu, scene and dtu_plain load"
         )
 
 
 def load_scene(kind: str, **kwargs) -> SceneData:
-    """Dispatch by convention name: 'blender'/'abc'. The JAX package's
-    'dtu'/'scene', 'scannet' and 'scene_line' raise ``NotImplementedError``."""
+    """Dispatch by convention name: 'blender'/'abc', 'dtu'/'scene'. The JAX
+    package's 'scannet' and 'scene_line' raise ``NotImplementedError``."""
     _check_ported(kind)
     return _LOADERS[kind](**kwargs)
 
@@ -318,8 +431,9 @@ def load_scene_for_config(
     with_wireframes: Optional[bool] = None,
 ) -> SceneData:
     """Build the scene an ExperimentConfig describes. ``distance_threshold``
-    overrides the conf value. Kinds ``blender`` and ``blender_plain`` load;
-    the others raise ``NotImplementedError``."""
+    overrides the conf value. Kinds ``blender``, ``blender_plain``, ``dtu``,
+    ``scene`` and ``dtu_plain`` load; the others raise
+    ``NotImplementedError``."""
     kind = cfg.dataset_kind
     _check_ported(kind)
     kwargs = dict(
@@ -336,7 +450,12 @@ def load_scene_for_config(
     )
     if with_wireframes is not None:
         kwargs["with_wireframes"] = with_wireframes
+    if kind in ("dtu", "scene"):
+        return load_scene("dtu", scan_id=cfg.scan_id, depth_dir=cfg.depth_dir, **kwargs)
     if kind == "blender_plain":
         kwargs["with_wireframes"] = False
         return _plain_trainable(load_scene("blender", **kwargs))
+    if kind == "dtu_plain":
+        kwargs["with_wireframes"] = False
+        return _plain_trainable(load_scene("dtu", scan_id=cfg.scan_id, **kwargs))
     return load_scene("blender", **kwargs)

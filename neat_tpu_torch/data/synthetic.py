@@ -5,7 +5,9 @@ Renders a colored wireframe solid from cameras on a sphere with a tiny
 numpy z-buffer rasterizer and writes the full scene data contract:
 images/, cameras.npz (intrinsics/extrinsics), hawp/*.json wireframes (the
 projected visible edges) and lines.json CAD ground truth, so a scene can
-be trained from disk with no data set at hand.
+be trained from disk with no data set at hand. For the DTU layout it can
+also write depth cues and, with ``write_dtu_groundtruth``, the files the
+DTU evaluation reads (the stl point cloud, ObsMask and Plane).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import json
 import os
 import os.path as osp
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -303,6 +305,8 @@ def generate_scene(
     seed: int = 0,
     convention: str = "blender",
     geometry: str = "cuboid",
+    scale_mat: Optional[np.ndarray] = None,
+    depth_dir: Optional[str] = None,
 ) -> None:
     """Write a full synthetic scene in either data convention.
 
@@ -315,12 +319,22 @@ def generate_scene(
 
     geometry: one of GEOMETRIES — structurally distinct wireframe
     families (valence, parallelism, occlusion, cell density, sparsity).
+
+    scale_mat (dtu only): the 4x4 map from the frame the scene is rendered
+    in to a ground-truth frame, written as every view's scale_mat_i with
+    world_mat_i = K [R|t] scale_mat^-1, so that P = world_mat @ scale_mat
+    is the camera DTU's loader decomposes (identity when None).
+    depth_dir: also write each view's depth cue, the distance along the
+    pixel's ray to the first surface (0 where the ray hits nothing), as
+    <out_dir>/<depth_dir>/<image stem>.npy.
     """
     img_dir = "image" if convention == "dtu" else "images"
     os.makedirs(osp.join(out_dir, img_dir), exist_ok=True)
     os.makedirs(osp.join(out_dir, "hawp"), exist_ok=True)
     if convention == "scannet":
         os.makedirs(osp.join(out_dir, "pose"), exist_ok=True)
+    if depth_dir is not None:
+        os.makedirs(osp.join(out_dir, depth_dir), exist_ok=True)
 
     verts, edges, faces, colors = GEOMETRIES[geometry]()
     h, w = res
@@ -367,6 +381,12 @@ def generate_scene(
         }
         with open(osp.join(out_dir, "hawp", f"image_{i:04d}.json"), "w") as f:
             json.dump(wf, f)
+        if depth_dir is not None:
+            ys, xs = np.mgrid[0:h, 0:w]
+            rays = np.linalg.solve(k, np.stack([xs, ys, np.ones_like(xs)], axis=0).reshape(3, -1))
+            dist = zbuf * np.linalg.norm(rays, axis=0).reshape(h, w)
+            np.save(osp.join(out_dir, depth_dir, f"image_{i:04d}.npy"),
+                    np.where(np.isfinite(zbuf), dist, 0.0).astype(np.float32))
         intr_all.append(k)
         pose_all.append(pose)
 
@@ -383,19 +403,55 @@ def generate_scene(
         for i, pose in enumerate(pose_all):
             np.savetxt(osp.join(out_dir, "pose", f"image_{i:04d}.txt"), pose)
     else:
+        sm = np.eye(4) if scale_mat is None else np.asarray(scale_mat, np.float64)
         cams = {}
         for i, (ki, pose) in enumerate(zip(intr_all, pose_all)):
             w2c = np.linalg.inv(pose)
             p = np.eye(4)
             p[:3] = ki @ w2c[:3]
-            cams[f"world_mat_{i}"] = p
-            cams[f"scale_mat_{i}"] = np.eye(4)
+            cams[f"world_mat_{i}"] = p if scale_mat is None else p @ np.linalg.inv(sm)
+            cams[f"scale_mat_{i}"] = sm
         np.savez(osp.join(out_dir, "cameras.npz"), **cams)
     with open(osp.join(out_dir, "lines.json"), "w") as f:
         json.dump({"junctions": verts.tolist(), "lines": edges.tolist()}, f)
     # the synthetic scene trains directly in the GT frame: identity mapping
     with open(osp.join(out_dir, "offset_scale.txt"), "w") as f:
         f.write("0 0 0 1\n")
+
+
+def write_dtu_groundtruth(
+    eval_dir: str,
+    scan: int,
+    scale_mat: np.ndarray,
+    geometry: str = "cuboid",
+    n_points: int = 20000,
+    res: float = 10.0,
+    seed: int = 0,
+) -> None:
+    """The DTU evaluation's ground truth for a scene ``generate_scene``
+    wrote with ``scale_mat``, in the ground-truth frame:
+    Points/stl/stl{scan:03}_total.ply (``n_points`` samples of the
+    geometry's surface), ObsMask/ObsMask{scan}_10.mat (ObsMask: every cell
+    of a grid of ``res`` spacing over the surface's box, 3 cells of margin,
+    observed; BB; Res) and ObsMask/Plane{scan}.mat (P: a ground plane one
+    cell below the surface, every stl point above it)."""
+    from scipy.io import savemat
+
+    from ..viz.mesh import sample_mesh_surface, save_ply
+
+    verts, _, faces, _ = GEOMETRIES[geometry]()
+    sm = np.asarray(scale_mat, np.float64)
+    pts = sample_mesh_surface(verts, faces, n_points, seed=seed)
+    pts = pts @ sm[:3, :3].T + sm[:3, 3]
+    os.makedirs(osp.join(eval_dir, "Points", "stl"), exist_ok=True)
+    os.makedirs(osp.join(eval_dir, "ObsMask"), exist_ok=True)
+    save_ply(osp.join(eval_dir, "Points", "stl", f"stl{scan:03}_total.ply"), pts)
+    bb = np.stack([pts.min(0) - 3 * res, pts.max(0) + 3 * res])
+    shape = tuple(int(v) for v in np.ceil((bb[1] - bb[0]) / res) + 1)
+    savemat(osp.join(eval_dir, "ObsMask", f"ObsMask{scan}_10.mat"),
+            {"ObsMask": np.ones(shape, dtype=np.uint8), "BB": bb, "Res": np.asarray([[res]])})
+    savemat(osp.join(eval_dir, "ObsMask", f"Plane{scan}.mat"),
+            {"P": np.asarray([[0.0], [0.0], [1.0], [-(pts[:, 2].min() - res)]])})
 
 
 if __name__ == "__main__":

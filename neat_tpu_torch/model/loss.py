@@ -2,14 +2,18 @@
 
 Bidirectional-endpoint-min line L1 gated at 100 px with the gate reused on
 the calibrated branch, L1 RGB, eikonal (|grad| - 1)^2, and the junction
-terms over an auction assignment of local to global junctions. All
-reductions are mask-aware because junction tensors are padded.
+terms over an auction assignment of local to global junctions; with
+``depth_weight`` > 0 and depth cues in the batch, the depth term: L1 over
+the pixels with a cue (0 = none), or the scale-and-shift-invariant loss
+(``depth_loss_kind='ssi'``). All reductions are mask-aware because
+junction tensors are padded.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,8 +32,10 @@ class LossConfig:
     junction_cost_2d_scale: float = 0.1
     junction_mode: str = "wfr"  # 'wfr' | 'jc'
     junction_stat_gated: bool = False
-    depth_weight: float = 0.0  # the depth terms are not ported yet
-    depth_loss_kind: str = "l1"
+    depth_weight: float = 0.0  # > 0 adds the depth term
+    depth_loss_kind: str = "l1"  # 'l1' | 'ssi'
+    # ssi only: fit the scale and shift over the pixels with a cue (> 0)
+    # alone; False, as in the reference, fits over all pixels
     depth_mask_zeros: bool = False
     assignment_method: str = "auction"
 
@@ -48,11 +54,45 @@ def _line_l1(lines2d, lines2d_gt, lines_weight, threshold: float) -> Tuple[torch
     return total, per_ray.detach()
 
 
+def scale_shift_invariant_loss(
+    pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None, alpha: float = 0.5
+) -> torch.Tensor:
+    """MiDaS-style scale-and-shift-invariant depth loss of (N,) depths: the
+    least-squares (s, t) that aligns pred to target over ``mask``, the
+    masked squared error over 2M, plus ``alpha`` x the one-scale gradient
+    matching term on the batch laid out as a square image (a single row
+    when N is not a square)."""
+    if mask is None:
+        mask = torch.ones_like(pred, dtype=torch.bool)
+    m = mask.to(pred.dtype)
+    n = torch.clamp(torch.sum(m), min=1.0)
+    a00 = torch.sum(m * pred * pred)
+    a01 = torch.sum(m * pred)
+    a11 = n
+    b0 = torch.sum(m * pred * target)
+    b1 = torch.sum(m * target)
+    det = a00 * a11 - a01 * a01
+    ok = det > 1e-9
+    det_c = torch.clamp(det, min=1e-9)
+    s = torch.where(ok, (a11 * b0 - a01 * b1) / det_c, torch.ones_like(det))
+    t = torch.where(ok, (-a01 * b0 + a00 * b1) / det_c, torch.zeros_like(det))
+    aligned = s * pred + t
+    total = torch.sum(m * (aligned - target) ** 2) / (2.0 * n)
+    if alpha > 0:
+        n_flat = pred.shape[0]
+        side = math.isqrt(n_flat)
+        shape = (side, side) if side * side == n_flat else (1, n_flat)
+        diff = ((aligned - target) * m).reshape(shape)
+        m2 = m.reshape(shape)
+        gx = torch.abs(diff[:, 1:] - diff[:, :-1]) * m2[:, 1:] * m2[:, :-1]
+        gy = torch.abs(diff[1:, :] - diff[:-1, :]) * m2[1:, :] * m2[:-1, :]
+        total = total + alpha * (torch.sum(gx) + torch.sum(gy)) / n
+    return total
+
+
 def neat_loss(outputs: Dict[str, torch.Tensor], ground_truth: Dict[str, torch.Tensor], cfg: LossConfig):
     """Total loss and its components. ground_truth: rgb (R, 3), lines2d
-    (R, 5) [x1 y1 x2 y2 score]."""
-    if cfg.depth_weight > 0.0:
-        raise NotImplementedError("the depth loss terms are not ported yet (ROADMAP.md §1, DTU path)")
+    (R, 5) [x1 y1 x2 y2 score], and depth (R,) where the scene has cues."""
     stats: Dict[str, torch.Tensor] = {}
     ref = outputs["rgb_values"]
     zero = torch.zeros((), dtype=ref.dtype, device=ref.device)
@@ -93,6 +133,22 @@ def neat_loss(outputs: Dict[str, torch.Tensor], ground_truth: Dict[str, torch.Te
         loss = loss + cfg.line_weight * line_loss
         stats["line_loss"] = line_loss
         stats["l2d_loss"] = l2d_uncalib
+
+    if cfg.depth_weight > 0.0 and "depth" in ground_truth:
+        pred = outputs["depth"].reshape(-1)
+        gt_d = ground_truth["depth"].reshape(-1)
+        if cfg.depth_loss_kind == "ssi":
+            depth_loss = scale_shift_invariant_loss(pred, gt_d, mask=(gt_d > 0) if cfg.depth_mask_zeros else None)
+        else:
+            valid = gt_d > 0
+            n_valid = torch.sum(valid)
+            depth_loss = torch.where(
+                n_valid > 0,
+                torch.sum(torch.where(valid, torch.abs(pred - gt_d), 0.0)) / torch.clamp(n_valid, min=1),
+                0.0,
+            )
+        loss = loss + cfg.depth_weight * depth_loss
+        stats["depth_loss"] = depth_loss
 
     j3d_loss = j2d_loss = j2d_stat = jcount = zero
     if "j3d_local" in outputs:

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..assignment.clustering import dbscan_cluster_means
 from ..assignment.matching import masked_assignment
 from ..core.camera import get_camera_params, project2d
 from ..core.density import LaplaceDensity, laplace_density
@@ -59,7 +60,8 @@ class NeatConfig:
     flags select the hand-written CUDA kernels: ``use_pallas_sampler`` ->
     K1, ``use_pallas_field`` -> K2 (``pallas_field_backward='stash'``) or
     K3 (``'recompute'``).
-    Only the default ``neat`` variant is ported; other variant flags raise
+    Only the default ``neat`` variant is ported, with or without DBSCAN
+    junction proposals (``dbscan_enabled``); other variant flags raise
     ``NotImplementedError`` (ROADMAP.md §1, variants)."""
 
     feature_vector_size: int = 256
@@ -111,6 +113,18 @@ class NeatConfig:
             use_median=True,
         )
 
+    @staticmethod
+    def for_dtu() -> "NeatConfig":
+        """Defaults of confs/dtu.conf."""
+        return NeatConfig(
+            scene_bounding_sphere=3.0,
+            implicit=ImplicitNetConfig(bias=0.6, sphere_scale=20.0),
+            junctions=GlobalJunctionsConfig(num_junctions=1024),
+            dbscan_enabled=True,
+            # dtu.conf: a fixed 10 px assignment gate, not the step's median
+            use_median=False,
+        )
+
 
 def offline_eval_config(cfg: NeatConfig) -> NeatConfig:
     """Exact-f32 variant for offline rendering / finalization: the same
@@ -159,7 +173,6 @@ _UNPORTED = {
     "attraction_aggregation": "weighted",
     "endpoint_sdf_separate": False,
     "dual_batch": False,
-    "dbscan_enabled": False,
     "dbscan_include_global": False,
     "junction_eikonal": False,
     "assignment_method": "auction",
@@ -390,7 +403,9 @@ def neat_forward(
 
     if training:
         endpoints = lines3d.detach().reshape(-1, 3)
-        if cfg.use_l3d:
+        if cfg.dbscan_enabled:
+            proposals, prop_mask = dbscan_cluster_means(endpoints, eps=0.01, min_samples=2)
+        elif cfg.use_l3d:
             med = torch.clamp(
                 _masked_median(l3d_score, torch.ones_like(l3d_score, dtype=torch.bool)), min=0.01
             )

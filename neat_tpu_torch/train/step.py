@@ -80,15 +80,17 @@ SCENE_KEYS = ("rgb", "intrinsics", "pose", "mask", "labels", "uv_proj", "lines",
 def scene_to_device(scene, device) -> Dict[str, torch.Tensor]:
     """The arrays of a packed ``data.datasets.SceneData`` that ``sample_batch``
     reads, as tensors on ``device`` (the keys ``utils/benchscene.py``
-    builds)."""
+    builds, and ``depth`` where the scene has depth cues)."""
     missing = [k for k in SCENE_KEYS if getattr(scene, k) is None]
     if missing:
         raise ValueError(f"the scene has no {missing}: load it with its wireframes or as blender_plain")
-    return {k: torch.as_tensor(getattr(scene, k)).to(device) for k in SCENE_KEYS}
+    keys = SCENE_KEYS + (("depth",) if scene.depth is not None else ())
+    return {k: torch.as_tensor(getattr(scene, k)).to(device) for k in keys}
 
 
 def sample_batch(gen: torch.Generator, scene: Dict[str, torch.Tensor], n_rays: int, img_width: int):
-    """One random view and ``n_rays`` support pixels drawn with replacement."""
+    """One random view and ``n_rays`` support pixels drawn with replacement;
+    the ground truth carries their depth cues where the scene has them."""
     dev = scene["rgb"].device
     n_views = scene["rgb"].shape[0]
     v = int(torch.randint(0, n_views, (), generator=gen, device=dev))
@@ -107,6 +109,8 @@ def sample_batch(gen: torch.Generator, scene: Dict[str, torch.Tensor], n_rays: i
         "verts_mask": scene["verts_mask"][v],
     }
     ground_truth = {"rgb": scene["rgb"][v, pix], "lines2d": scene["lines"][v, labels]}
+    if "depth" in scene:
+        ground_truth["depth"] = scene["depth"][v, pix]
     return inputs, ground_truth
 
 

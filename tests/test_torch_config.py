@@ -14,7 +14,7 @@ import pytest
 
 import neat_tpu.train.config as jconf
 import neat_tpu_torch.train.config as tconf
-from neat_tpu_torch.model.neat import check_ported
+from neat_tpu_torch.model.neat import check_ported, init_neat
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CONFS = sorted(osp.relpath(p, REPO) for p in glob.glob(osp.join(REPO, "confs", "**", "*.conf"), recursive=True))
@@ -100,10 +100,27 @@ def test_class_maps_are_the_same():
 
 
 @pytest.mark.parametrize("conf", ["confs/abc/abc-1776.conf", "confs/dtu.conf"])
-def test_unported_variant_parses_and_raises_at_model_build(conf):
-    """A conf asking for a variant the port does not run parses as in JAX;
-    the model build raises."""
+def test_dbscan_confs_pass_check_ported_and_build(conf):
+    """The DBSCAN confs resolve as in JAX, pass check_ported and build the
+    model (1024 junction latents on DTU, 64 on ABC)."""
     cfg = tconf.load_experiment_config(osp.join(REPO, conf))
-    assert cfg.model.dbscan_enabled
-    with pytest.raises(NotImplementedError, match="dbscan_enabled"):
+    assert cfg.model.dbscan_enabled and not cfg.model.use_median
+    check_ported(cfg.model)
+    model = init_neat(cfg.model, seed=0, device="cpu")
+    assert model.junctions.latents.shape[0] == (1024 if "dtu" in conf else 64)
+
+
+@pytest.mark.parametrize("conf", CONFS)
+def test_every_conf_passes_check_ported(conf):
+    check_ported(tconf.load_experiment_config(osp.join(REPO, conf)).model)
+
+
+def test_dbscan_with_global_junctions_still_raises():
+    """rend_c (the global junctions joined to the endpoints before DBSCAN)
+    parses as in JAX; the model build raises, naming the variants item."""
+    conf = tconf.parse_hocon(_text("confs/dtu.conf"))
+    conf["train"]["model_class"] = "model.networks.neat_wfr_rend_c.VolSDFNetwork"
+    cfg = tconf.build_experiment_config(conf)
+    assert cfg.model.dbscan_include_global
+    with pytest.raises(NotImplementedError, match=r"dbscan_include_global.*ROADMAP.md §1, variants"):
         check_ported(cfg.model)

@@ -18,7 +18,8 @@ sums it takes in chunks), and in relative L2 norm (f32
 over eight draws, in relative L2 norm off the crossings (1e-5), with every point
 that is off explained by one. K4 (and its first port): rays
 whose beta differs (one flipped ``err <= eps`` decision) may be 0.5% of the
-rays; the others agree to rtol 2e-4 / atol 2e-5. The f32 K1 and K3-fwd
+rays; the others agree to rtol 2e-4 / atol 2e-5. DBSCAN: the valid rows as on
+the CPU exactly, the means within 1e-6. The f32 K1 and K3-fwd
 (3xTF32 on the tensor cores) are also held against the plain version in
 f64: each output's max |err| at most 1.5x plain f32's and 1.5x the scalar
 variant's against the same f64, or 2^-20 of the largest entry. In f32 the
@@ -675,3 +676,23 @@ def test_render_chunk_and_mesh_grid_on_the_f32_kernels(eval_scene):
     grid_k = RE.grid_sdf_fn(model, cfg)(pts)
     assert fused_sdf_kernel.launches - before == 1
     assert _err(torch.from_numpy(grid_k), torch.from_numpy(RE.grid_sdf_fn(model, cfg, kernels=False)(pts))) <= 1e-3
+
+
+@pytest.mark.parametrize("check_every", [1, 4, 64])
+def test_dbscan_on_the_card_matches_the_cpu(setup, check_every):
+    """DBSCAN of 2048 points (clumps with repeated points, an eps-chain of
+    130 links in index order, noise) on the card: the valid rows exactly as
+    on the CPU, the means within 1e-6 (the sums in another order)."""
+    from neat_tpu_torch.assignment.clustering import dbscan_cluster_means
+
+    gen = torch.Generator().manual_seed(7)
+    centres = torch.rand((150, 3), generator=gen) * 3 - 1.5
+    clumps = (centres[:, None] + (torch.rand((150, 6, 3), generator=gen) - 0.5) * 0.004).reshape(-1, 3)
+    clumps[1::6] = clumps[0::6]  # rays through one pixel repeat exactly
+    chain = torch.tensor([2.5, -2.5, -2.5]) + torch.arange(130)[:, None] * torch.tensor([0.009, 0.0, 0.0])
+    noise = torch.rand((2048 - 900 - 130, 3), generator=gen) * 6 - 3
+    pts = torch.cat([clumps, chain, noise]).float()
+    m_ref, v_ref = dbscan_cluster_means(pts)
+    m, v = dbscan_cluster_means(pts.cuda(), check_every=check_every)
+    assert int(v_ref.sum()) > 100 and torch.equal(v.cpu(), v_ref)
+    assert float((m.cpu()[v_ref] - m_ref[v_ref]).abs().max()) <= 1e-6

@@ -12,6 +12,7 @@ copy with ``-ffp-contract=off`` and equals the numpy version. The packed
 scenes are therefore compared with JAX's loader on its numpy encodels.
 """
 
+import dataclasses
 import json
 import os
 import os.path as osp
@@ -329,11 +330,28 @@ def test_packed_scene_bit_equal_to_jax(scene_roots, kind, res, monkeypatch):
         assert (got.mask.sum(axis=1) > 0).all() and (got.support_count > 0).all()
 
 
-@pytest.mark.parametrize("conf", ["dtu.conf", "bmvs.conf"])
-def test_unported_scene_kinds_raise(conf):
-    cfg = tconf.load_experiment_config(osp.join(REPO, "confs", conf))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, DTU path"):
-        tdata.load_scene_for_config(cfg, "/nonexistent")
+@pytest.mark.parametrize("conf,res", [("dtu.conf", (60, 80)), ("bmvs.conf", (48, 64))])
+def test_dtu_and_bmvs_confs_load_as_in_jax(conf, res, tmp_path, monkeypatch):
+    """dtu.conf and bmvs.conf load a DTU-layout scene (their data_dir and
+    scan_id, the 5 px default band, the conf's aspect ratio at a small
+    size) bit for bit as JAX's loader does. ScanNet still raises."""
+    cfg_j = jconf.load_experiment_config(osp.join(REPO, "confs", conf))
+    cfg_t = tconf.load_experiment_config(osp.join(REPO, "confs", conf))
+    assert cfg_t.dataset_kind == "dtu" and cfg_t.distance_threshold == 5.0
+    assert tuple(cfg_t.img_res) == tuple(int(20 * r) if conf == "dtu.conf" else int(12 * r) for r in res)
+    cfg_j, cfg_t = (dataclasses.replace(c, img_res=res) for c in (cfg_j, cfg_t))
+    scan = tmp_path / cfg_t.data_dir / f"scan{cfg_t.scan_id}"
+    tsyn.generate_scene(str(scan), n_views=3, res=res, convention="dtu", geometry="cuboid")
+    monkeypatch.setattr(jenc, "_build_native", lambda: None)  # JAX's auto backend -> its numpy version
+    ref = jdata.load_scene_for_config(cfg_j, str(tmp_path))
+    got = tdata.load_scene_for_config(cfg_t, str(tmp_path))
+    for name in ref.__dataclass_fields__:
+        a, b = getattr(ref, name), getattr(got, name)
+        if a is None or isinstance(a, tuple):
+            assert a == b, name
+        else:
+            assert _bits_equal(a, b), name
+    assert got.n_images == 3 and (got.support_count > 0).all()
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1, data"):
         tdata.load_scene("scannet", data_dir="x", img_res=(8, 8))
 

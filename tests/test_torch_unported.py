@@ -1,6 +1,6 @@
 """What the port does not run yet raises, and names its ROADMAP item.
 
-Each message names the item by its title ("ROADMAP.md §1, DTU path"), not
+Each message names the item by its title ("ROADMAP.md §1, data"), not
 by a number that a renumbering of the queue would leave pointing elsewhere.
 """
 
@@ -10,12 +10,13 @@ import pytest
 import torch
 
 import neat_tpu_torch.assignment.matching as tm
-import neat_tpu_torch.model.loss as tloss
 import neat_tpu_torch.model.neat as tneat
 
 
-def _depth_loss():
-    tloss.neat_loss({}, {}, tloss.LossConfig(depth_weight=1.0))
+def _scannet_scene():
+    from neat_tpu_torch.data.datasets import load_scene
+
+    load_scene("scannet", data_dir="x", img_res=(8, 8))
 
 
 def _variant():
@@ -41,13 +42,13 @@ def _render_eval_mesh():
 @pytest.mark.parametrize(
     "call,item",
     [
-        (_depth_loss, "ROADMAP.md §1, DTU path"),
+        (_scannet_scene, "ROADMAP.md §1, data"),
         (_variant, "ROADMAP.md §1, variants"),
         (_callback_assignment, "ROADMAP.md §1, assignment `callback` mode"),
         (_finalize_mesh, "ROADMAP.md §1, multi-GPU"),
         (_render_eval_mesh, "ROADMAP.md §1, multi-GPU"),
     ],
-    ids=["depth_loss", "variant", "callback_assignment", "finalize_mesh", "render_eval_mesh"],
+    ids=["scannet_scene", "variant", "callback_assignment", "finalize_mesh", "render_eval_mesh"],
 )
 def test_unported_paths_raise_and_name_their_item(call, item):
     with pytest.raises(NotImplementedError) as err:
