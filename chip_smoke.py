@@ -14,6 +14,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only k4 # build fused_round.cu (+ K1 for the sampler run); K4's checks and timings
     python3 chip_smoke.py --only finalize # build K1's and K3's sources; a 1-epoch rundir, then 8. below
     python3 chip_smoke.py --only dtu # build the main path's and the f32 sources; 9. below alone
+    python3 chip_smoke.py --only cli # build the main path's sources; 10. below alone
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -147,9 +148,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    --views 0 (1,875 chunks of 1024 rays, each the f32 K1 x5 and K3-fwd x1;
    the mesh in the ground-truth frame), eval_dtu on that mesh: every
    launch counted, every output there and finite, each CLI's seconds.
+10. the rest of the trainer (--only cli alone), through the training CLI
+   in this process, 5 epochs a run: abc-neat-a on the runner phase's scene
+   (generated with --only cli) without and with --epoch_scan from the
+   same seed, whose parameters must be equal (where they are not bit for
+   bit, as when the run without the flag is the process's first training
+   run: the largest difference printed and held to 4x that of the run
+   without the flag repeated); --debug_nans
+   --batch_size 1, then one clean step and one after a parameter is set to
+   NaN, which must raise FloatingPointError; abc-1776 (a generated
+   abc/00001776) with the auction and with --assignment callback (two
+   scipy calls a step, no auction); then 3 steps each of a ScanNet conf
+   (abc-neat-a's model, a generated 480 x 640 x 8-view ScanNet-layout
+   scene with sparse depth_colmap cues, the l1 depth term above 0) and a
+   scene_line conf (dtu.conf's, a generated 1200 x 1600 x 4-view DTU-layout
+   scene, the generator's edges as lines3d). Every step launches the main
+   path's kernels; per run ms/step by the runner's epoch clock, the host
+   syncs of the callback, DBSCAN and the auction a step, scipy's host ms;
+   the scenes' generation and load seconds and bytes on the device; the
+   phase's seconds.
 
-It prints ms/step and rays/s, the card line and one ``kernels`` JSON line,
-and last ``{"ok": true, "device": {...}}``. Details go to
+It prints ms/step and rays/s, its seconds, the card line and one
+``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``. Details go to
 build/chip_smoke/chip_smoke.json (gitignored).
 """
 
@@ -2653,36 +2673,44 @@ def print_conf_runner(r, card: str) -> None:
     print(f"  ms per step {[round(s['ms'], 1) for s in steps]}", flush=True)
 
 
-def depth_steps(kind, conf_path, data_root, exps):
-    """DEPTH_STEPS training steps with the depth term on (conf_path: dtu.conf
-    with dataset.depth_dir and loss.depth_weight / depth_loss_kind), through
-    the runner's own step: finite losses, a depth term above 0, the main
-    path's kernels."""
+def depth_steps(kind, conf_path, data_root, exps, label=None):
+    """DEPTH_STEPS training steps through the runner's own step (conf_path:
+    a conf with depth cues and loss.depth_weight / depth_loss_kind): finite
+    losses, the main path's kernels and, with ``kind``, a depth term above
+    0. Records the runner's set-up and scene load seconds and the scene's
+    bytes on the device."""
     import torch
 
     from neat_tpu_torch.train import runner as R
     from neat_tpu_torch.train.step import step_generator
 
+    label = label or f"depth {kind}"
     fns = counters()
     expected = {k: PATHS["main"][1].get(k, 0) for k in fns}
     t0 = time.perf_counter()
     r = R.TrainRunner(conf=conf_path, data_root=data_root, exps_folder=exps, nepochs=1)
-    rec = {"kind": kind, "load_s": time.perf_counter() - t0, "losses": [], "depth_losses": [], "ms": []}
+    rec = {"kind": kind, "load_s": time.perf_counter() - t0, "scene_load_s": r.load_seconds,
+           "n_views": r.n_views, "res": list(r.scene.img_res),
+           "device_bytes": sum(t.numel() * t.element_size() for t in r.scene_dev.values()),
+           "cue_pixels": int((r.scene.depth > 0).sum()) if r.scene.depth is not None else 0,
+           "losses": [], "depth_losses": [], "ms": []}
     try:
-        require("depth" in r.scene_dev and r.cfg.loss.depth_loss_kind == kind and r.cfg.loss.depth_weight > 0,
-                f"depth {kind}: the runner has no depth cues or no depth term")
+        if kind is not None:
+            require("depth" in r.scene_dev and r.cfg.loss.depth_loss_kind == kind and r.cfg.loss.depth_weight > 0,
+                    f"{label}: the runner has no depth cues or no depth term")
         for _ in range(DEPTH_STEPS):
             before = {k: f.launches for k, f in fns.items()}
             torch.cuda.synchronize()
             t = time.perf_counter()
             r.state, aux = r.step_fn(r.state, r.scene_dev, step_generator(0, 0, r.state.step, r.device))
-            loss, depth_loss = float(aux["loss"]), float(aux["depth_loss"])
+            loss = float(aux["loss"])
+            depth_loss = float(aux["depth_loss"]) if "depth_loss" in aux else 0.0  # no depth term: none
             rec["ms"].append((time.perf_counter() - t) * 1e3)
             rec["losses"].append(loss)
             rec["depth_losses"].append(depth_loss)
-            require(math.isfinite(loss) and math.isfinite(depth_loss) and depth_loss > 0,
-                    f"depth {kind}: loss {loss}, depth term {depth_loss}")
-            require(_launched(fns, before) == expected, f"depth {kind}: a step launched {_launched(fns, before)}")
+            require(math.isfinite(loss) and math.isfinite(depth_loss) and (kind is None or depth_loss > 0),
+                    f"{label}: loss {loss}, depth term {depth_loss}")
+            require(_launched(fns, before) == expected, f"{label}: a step launched {_launched(fns, before)}")
     finally:
         r.close()
     return rec
@@ -2874,6 +2902,294 @@ def dtu_phase():
 
 
 # ---------------------------------------------------------------------------
+# the rest of the trainer: the JAX command line's flags and the ScanNet and
+# scene_line scene kinds, through the training CLI
+# ---------------------------------------------------------------------------
+
+# a ScanNet-layout scene at ScanNet's 480 x 640 color size, its sparse cues a
+# fifth of the pixels; the scene_line scene at dtu.conf's 1200 x 1600
+SCANNET_RES, SCANNET_VIEWS, SCANNET_CUE_SHARE = (480, 640), 8, 0.2
+SCENE_LINE_VIEWS = 4
+# epochs of each run through the CLI: the first is left out of ms/step
+CLI_EPOCHS = 5
+# the --epoch_scan run against the sequential one where the two differ (on
+# the card the first training run of a process differs from the later ones
+# in the gradients of plain PyTorch ops, PERF.md §7): its largest parameter
+# difference at most this factor of the sequential run's against itself
+# repeated
+EPOCH_SCAN_FACTOR = 4.0
+
+
+def cli_run(label, args, n_epochs):
+    """neat_tpu_torch.train.runner.main(args + --nepoch) in this process for
+    n_epochs epochs; every call of the runner's step function (one step, or
+    with --epoch_scan an epoch's steps) counted without a sync: each step
+    the main path's kernels, and per call the host syncs of the callback
+    assignment, of DBSCAN and of the auctions and the host ms of the
+    callback's scipy work. Every loss must be finite (read after the run).
+    ms/step comes from the runner's own clock, the rays/s of each epoch's
+    log line, the same in both modes; the median over the epochs after the
+    first."""
+    import re
+
+    import torch
+
+    from neat_tpu_torch.assignment.clustering import dbscan_cluster_means
+    from neat_tpu_torch.assignment.matching import auction_assignment, hungarian_callback
+    from neat_tpu_torch.train import runner as R
+
+    fns = counters()
+    expected = {k: PATHS["main"][1].get(k, 0) for k in fns}
+    rec = {"label": label, "args": args, "calls": []}
+    losses = []
+    orig_run = R.TrainRunner.run
+
+    def run(self):
+        rec.update(rundir=self.rundir, load_s=self.load_seconds, n_views=self.n_views, n_rays=self.n_rays,
+                   device_bytes=sum(t.numel() * t.element_size() for t in self.scene_dev.values()))
+        step_fn = self.step_fn
+
+        def counted(state, scene, gens):
+            k = len(gens) if isinstance(gens, list) else 1
+            before = {name: f.launches for name, f in fns.items()}
+            syncs0 = (hungarian_callback.syncs, hungarian_callback.host_s, dbscan_cluster_means.syncs,
+                      auction_assignment.syncs)
+            state, aux = step_fn(state, scene, gens)
+            losses.append(aux["loss"].detach().reshape(-1))
+            c = {"steps": k, "launches": _launched(fns, before),
+                 "callback_syncs": hungarian_callback.syncs - syncs0[0],
+                 "callback_host_ms": (hungarian_callback.host_s - syncs0[1]) * 1e3,
+                 "dbscan_syncs": dbscan_cluster_means.syncs - syncs0[2],
+                 "auction_syncs": auction_assignment.syncs - syncs0[3]}
+            rec["calls"].append(c)
+            want = {name: n * k for name, n in expected.items()}
+            require(c["launches"] == want, f"{label}: {k} steps launched {c['launches']}, expected {want}")
+            return state, aux
+
+        self.step_fn = counted
+        return orig_run(self)
+
+    R.TrainRunner.run = run
+    try:
+        for f in fns.values():
+            f.launches = 0
+        R.main(args + ["--nepoch", str(n_epochs - 1)])
+    finally:
+        R.TrainRunner.run = orig_run
+    losses = torch.cat(losses).tolist()
+    calls = rec["calls"]
+    steps = sum(c["steps"] for c in calls)
+    require(steps == n_epochs * rec["n_views"] == len(losses), f"{label}: {steps} steps")
+    require(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
+    with open(os.path.join(rec["rundir"], "train.log")) as f:
+        rays_s = [float(m.replace(",", "")) for m in re.findall(r"\(([0-9,]+) rays/s\)", f.read())]
+    require(len(rays_s) == n_epochs, f"{label}: {len(rays_s)} epoch lines in train.log")
+    ms = [1e3 * rec["n_rays"] / x for x in rays_s]
+    rec.update(steps=steps, epoch_ms_per_step=ms, median_ms=statistics.median(ms[1:] or ms), losses=losses,
+               launches_per_step={k: v // calls[0]["steps"] for k, v in calls[0]["launches"].items() if v},
+               callback_syncs_per_step=sum(c["callback_syncs"] for c in calls) / steps,
+               # the first call imports scipy: left out
+               callback_host_ms_per_step=statistics.median(c["callback_host_ms"] / c["steps"] for c in calls[1:]),
+               dbscan_syncs_per_step=sum(c["dbscan_syncs"] for c in calls) / steps,
+               auction_syncs_per_step=sum(c["auction_syncs"] for c in calls) / steps)
+    return rec
+
+
+def _latest_state(rundir):
+    from neat_tpu_torch.train.checkpoint import load_checkpoint
+
+    return load_checkpoint(os.path.join(rundir, "checkpoints"), "latest")[0]
+
+
+def _max_param_diff(a, b) -> float:
+    import numpy as np
+
+    return max(float(np.abs(a["params"][k].astype(np.float64) - b["params"][k]).max()) for k in a["params"])
+
+
+def nan_steps(conf, data_root, exps):
+    """With NaN debugging on, one clean step of the runner's own step (no
+    raise, the main path's kernels) and one after a parameter is set to NaN,
+    which must raise FloatingPointError and leave the state as it was."""
+    import torch
+
+    from neat_tpu_torch.train import runner as R
+    from neat_tpu_torch.train.checkpoint import host_state
+    from neat_tpu_torch.train.step import step_generator
+    from neat_tpu_torch.utils.profiling import enable_nan_debugging
+
+    fns = counters()
+    expected = {k: PATHS["main"][1].get(k, 0) for k in fns}
+    r = R.TrainRunner(conf=conf, data_root=data_root, exps_folder=exps, nepochs=1)
+    previous = enable_nan_debugging()
+    rec = {}
+    try:
+        def step():
+            return r.step_fn(r.state, r.scene_dev, step_generator(0, 0, r.state.step, r.device))
+
+        before = {k: f.launches for k, f in fns.items()}
+        r.state, aux = step()
+        rec["clean_loss"] = float(aux["loss"])
+        require(_launched(fns, before) == expected, f"debug_nans: the clean step launched {_launched(fns, before)}")
+        with torch.no_grad():
+            r.state.model.implicit.lin0.v[0, 0] = float("nan")
+        state0 = host_state(r.state)
+        try:
+            step()
+        except FloatingPointError as e:
+            rec["raised"] = str(e)
+        require("raised" in rec, "debug_nans: a step with a NaN parameter did not raise FloatingPointError")
+        require(_same_state(state0, host_state(r.state)), "debug_nans: the raising step moved the state")
+    finally:
+        enable_nan_debugging(previous)
+        r.close()
+    return rec
+
+
+def cli_phase(abc_data_root=None):
+    """The training CLI on the JAX command line's flags and the two scene
+    kinds, each step counted (the main path's kernels): abc-neat-a with and
+    without --epoch_scan (--nepoch 1, the same seed, equal parameters);
+    --debug_nans --batch_size 1 for an epoch, and a NaN step that raises;
+    abc-1776 with the auction and with --assignment callback; a ScanNet
+    conf on a generated 480 x 640 x 8-view scene with sparse depth_colmap
+    cues (3 steps, the l1 depth term above 0); a scene_line conf on a
+    generated 1200 x 1600 DTU-layout scene with the generator's own edges
+    as lines3d (3 steps). ``abc_data_root``: the runner phase's data root,
+    whose abc-neat-a scene is used (generated here without one)."""
+    import shutil
+
+    import numpy as np
+
+    from neat_tpu_torch.data.synthetic import generate_scene
+    from neat_tpu_torch.train.config import dump_hocon, load_experiment_config, parse_hocon, put_path
+
+    t_phase = time.perf_counter()
+    work = os.path.join(OUT_DIR, "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    data_root, exps = os.path.join(work, "data"), os.path.join(work, "exps")
+    rec = {}
+    conf = os.path.join(REPO, RUNNER_CONF)
+    cfg = load_experiment_config(conf)
+    if abc_data_root is None:
+        abc_data_root = data_root
+        generate_scene(os.path.join(data_root, RUNNER_SCENE), n_views=RUNNER_VIEWS, res=tuple(cfg.img_res), seed=0)
+
+    # --epoch_scan beside the steps one by one, from the same seed
+    args = ["--conf", conf, "--data_root", abc_data_root, "--exps_folder", exps]
+    rec["sequential"] = cli_run("abc-neat-a", args, CLI_EPOCHS)
+    rec["epoch_scan"] = cli_run("abc-neat-a --epoch_scan", args + ["--epoch_scan"], CLI_EPOCHS)
+    require(rec["epoch_scan"]["calls"][0]["steps"] == RUNNER_VIEWS, "epoch_scan: a call is not an epoch's steps")
+    seq, scan = (_latest_state(rec[k]["rundir"]) for k in ("sequential", "epoch_scan"))
+    rec["bit_equal"] = _same_state(seq, scan)
+    rec["scan_diff"] = 0.0 if rec["bit_equal"] else _max_param_diff(seq, scan)
+    if not rec["bit_equal"]:
+        rec["repeat"] = cli_run("abc-neat-a again", args, CLI_EPOCHS)
+        again = _latest_state(rec["repeat"]["rundir"])
+        rec["repeat_diff"] = _max_param_diff(seq, again)
+        # the scan against the repeat, and the first step whose loss differs in each pair
+        rec["scan_equals_repeat"] = _same_state(scan, again)
+        rec["first_loss_differing"] = {
+            f"{a} vs {b}": next((i for i, (x, y) in enumerate(zip(rec[a]["losses"], rec[b]["losses"])) if x != y),
+                                None)
+            for a, b in (("sequential", "epoch_scan"), ("sequential", "repeat"), ("epoch_scan", "repeat"))}
+        require(rec["repeat_diff"] > 0 and rec["scan_diff"] <= EPOCH_SCAN_FACTOR * rec["repeat_diff"],
+                f"epoch_scan: parameters {rec['scan_diff']:.3g} off the sequential run's, which differs from "
+                f"itself repeated by {rec['repeat_diff']:.3g}")
+
+    # --debug_nans and --batch_size through the CLI, then a NaN step
+    rec["debug_nans"] = cli_run("abc-neat-a --debug_nans --batch_size 1",
+                                args + ["--debug_nans", "--batch_size", "1"], CLI_EPOCHS)
+    rec["nan_step"] = nan_steps(conf, abc_data_root, exps)
+
+    # abc-1776: the auction, then scipy's Hungarian on the host
+    conf1776 = os.path.join(REPO, ABC_SCAN_CONF)
+    cfg1776 = load_experiment_config(conf1776)
+    generate_scene(os.path.join(data_root, ABC_SCAN), n_views=ABC_SCAN_VIEWS, res=tuple(cfg1776.img_res), seed=0)
+    args = ["--conf", conf1776, "--data_root", data_root, "--exps_folder", exps]
+    rec["auction"] = cli_run("abc-1776", args, CLI_EPOCHS)
+    rec["callback"] = cli_run("abc-1776 --assignment callback", args + ["--assignment", "callback"], CLI_EPOCHS)
+    require(rec["callback"]["callback_syncs_per_step"] == 2 and rec["callback"]["auction_syncs_per_step"] == 0,
+            "callback: not two scipy assignments and no auction a step")
+
+    with open(conf) as f:
+        text = f.read()
+    # ScanNet: abc-neat-a's model on a ScanNet-layout scene with sparse cues
+    raw = parse_hocon(text)
+    for key, value in (("train.dataset_class", "datasets.scannet_hawp_dataset.SceneDataset"),
+                       ("dataset.data_dir", "scannet"), ("dataset.scan_id", "scene0000_00"),
+                       ("dataset.img_res", list(SCANNET_RES)), ("loss.depth_weight", 0.1),
+                       ("loss.depth_loss_kind", "l1")):
+        put_path(raw, key, value)
+    path = os.path.join(work, "scannet.conf")
+    with open(path, "w") as f:
+        f.write(dump_hocon(raw))
+    scan_dir = os.path.join(data_root, "scannet", "scene0000_00")
+    t0 = time.perf_counter()
+    generate_scene(scan_dir, n_views=SCANNET_VIEWS, res=SCANNET_RES, seed=0, convention="scannet",
+                   depth_dir="depth_colmap")
+    rs = np.random.RandomState(0)
+    for name in sorted(os.listdir(os.path.join(scan_dir, "depth_colmap"))):
+        cue = os.path.join(scan_dir, "depth_colmap", name)
+        d = np.load(cue)
+        np.save(cue, np.where(rs.rand(*d.shape) < SCANNET_CUE_SHARE, d, 0.0).astype(np.float32))
+    rec["scannet_generate_s"] = time.perf_counter() - t0
+    rec["scannet"] = depth_steps("l1", path, data_root, exps, label="scannet")
+
+    # scene_line: dtu.conf on a generated DTU-layout scene, its edges as lines3d
+    dtu_text = open(os.path.join(REPO, DTU_CONF)).read()
+    raw = parse_hocon(dtu_text)
+    dcfg = load_experiment_config(os.path.join(REPO, DTU_CONF))
+    scan_dir = os.path.join(data_root, dcfg.data_dir, f"scan{dcfg.scan_id}")
+    t0 = time.perf_counter()
+    generate_scene(scan_dir, n_views=SCENE_LINE_VIEWS, res=tuple(dcfg.img_res), seed=0, convention="dtu")
+    rec["scene_line_generate_s"] = time.perf_counter() - t0
+    with open(os.path.join(scan_dir, "lines.json")) as f:
+        gt = json.load(f)
+    npz = os.path.join(work, "lines3d.npz")
+    np.savez(npz, lines3d=np.asarray(gt["junctions"], np.float32)[np.asarray(gt["lines"], np.int64)])
+    put_path(raw, "train.dataset_class", "datasets.scene_line_dataset.SceneDataset")
+    put_path(raw, "dataset.lines_npz", npz)
+    path = os.path.join(work, "scene_line.conf")
+    with open(path, "w") as f:
+        f.write(dump_hocon(raw))
+    rec["scene_line"] = depth_steps(None, path, data_root, exps, label="scene_line")
+    require(rec["scene_line"]["cue_pixels"] > 0, "scene_line: no depth cue on any view")
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_cli(r, card: str) -> None:
+    for key in ("sequential", "epoch_scan", "repeat", "debug_nans", "auction", "callback"):
+        if key not in r:
+            continue
+        c = r[key]
+        print(f"cli {c['label']}: {c['steps']} steps in {len(c['calls'])} calls, losses {c['losses'][0]:.4f} .. "
+              f"{c['losses'][-1]:.4f}; launches a step {c['launches_per_step']}; {c['median_ms']:.2f} ms/step "
+              f"(the runner's epoch clock, median of the epochs after the first; each epoch "
+              f"{[round(x, 2) for x in c['epoch_ms_per_step']]}); host syncs a step: callback "
+              f"{c['callback_syncs_per_step']:.2f}, DBSCAN {c['dbscan_syncs_per_step']:.2f}, auction "
+              f"{c['auction_syncs_per_step']:.2f}; scipy's host ms a step {c['callback_host_ms_per_step']:.3f} "
+              f"(median after the first call); "
+              f"{card}", flush=True)
+    diff = "bit for bit" if r["bit_equal"] else (
+        f"largest parameter difference {r['scan_diff']:.3g} (the sequential run repeated: {r['repeat_diff']:.3g}); "
+        f"the scan {'equals' if r['scan_equals_repeat'] else 'differs from'} the repeat bit for bit; the first "
+        f"step whose loss differs: {r['first_loss_differing']}")
+    print(f"cli --epoch_scan against the steps one by one: {diff}", flush=True)
+    print(f"cli --debug_nans: a clean step (loss {r['nan_step']['clean_loss']:.4f}), then a NaN parameter raised "
+          f"FloatingPointError: {r['nan_step']['raised']}", flush=True)
+    for key in ("scannet", "scene_line"):
+        d = r[key]
+        print(f"cli {key}: {d['n_views']} views of {d['res'][0]} x {d['res'][1]} generated in "
+              f"{r[key + '_generate_s']:.2f} s, loaded in {d['scene_load_s']:.2f} s, {d['device_bytes'] / 1e9:.3f} "
+              f"GB on the device, {d['cue_pixels']} cue pixels; {DEPTH_STEPS} steps, losses "
+              f"{[round(x, 4) for x in d['losses']]}, depth terms {[round(x, 4) for x in d['depth_losses']]}, ms "
+              f"{[round(x, 1) for x in d['ms']]}; {card}", flush=True)
+    print(f"cli phase: {r['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 
 # --only <kernel>: the libraries that kernel's checks build (the kernel's
 # own and the scalar kernel it is held against; for K4, K1's, which the
@@ -2886,7 +3202,8 @@ ONLY = {"k1": ("fused_sdf", "fused_sdf_tf32"), "k2": ("field_fwd_mma", "fused_fi
         "k4": ("fused_round", "fused_sdf"),
         "finalize": ("fused_sdf", "fused_field", "fused_sdf_tf32", "field_fwd_tf32"),
         "dtu": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field",
-                "fused_sdf_tf32", "field_fwd_tf32")}
+                "fused_sdf_tf32", "field_fwd_tf32"),
+        "cli": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma")}
 
 
 def print_runner(r, card: str) -> None:
@@ -2918,6 +3235,7 @@ def main() -> int:
     ap.add_argument("--turns", type=int, default=0, metavar="N",
                     help="also time N steps of each path, the paths taken in turns")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2972,6 +3290,9 @@ def main() -> int:
             report["finalize"] = finalize_phase(*finalize_rundir())
         elif args.only == "dtu":
             report["dtu"] = dtu_phase()
+        elif args.only == "cli":
+            report["cli"] = cli_phase()
+            print_cli(report["cli"], card)
         elif args.only == "k3b":
             report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k3b"]:
@@ -2981,8 +3302,10 @@ def main() -> int:
             report[args.only] = fwd_phase(args.only, model, cfg, gen, args.quick, n_main)
             for r in report[args.only]:
                 print_fwd(r)
+        report["seconds"] = time.perf_counter() - t_start
         with open(os.path.join(OUT_DIR, f"chip_smoke_{args.only}.json"), "w") as f:
             json.dump(report, f, indent=1)
+        print(f"chip_smoke: {report['seconds']:.1f} s", flush=True)
         print(card, flush=True)
         return 0
     k1 = k1_phase(model, cfg, gen, args.quick)
@@ -3075,6 +3398,8 @@ def main() -> int:
         print_runner(report["runner"], card)
         report["finalize"] = finalize_phase(report["runner"]["rundir"], report["runner"]["data_root"])
         report["dtu"] = dtu_phase()
+        report["cli"] = cli_phase(report["runner"]["data_root"])
+        print_cli(report["cli"], card)
         t1, t3 = k1[0], k3[-1]
         src = "neat_tpu_torch/csrc/"
         kernels = [
@@ -3148,8 +3473,10 @@ def main() -> int:
             step_bound_ms=len(k4_times) * mean("bound_ms")))
         kernels += finalize_kernel_entries(report["finalize"])
         report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_start
     with open(out_path, "w") as f:
         json.dump(report, f, indent=1)
+    print(f"chip_smoke: {report['seconds']:.1f} s", flush=True)
     print(card, flush=True)  # nvidia-smi's own name, power.limit line
     if not args.quick:
         print(json.dumps({"kernels": report["kernels"]}), flush=True)

@@ -1,2 +1,2 @@
-from .clustering import dbscan_cluster_means
-from .matching import auction_assignment, masked_assignment
+from .clustering import dbscan_callback_means, dbscan_cluster_means
+from .matching import auction_assignment, hungarian_callback, masked_assignment

@@ -22,14 +22,21 @@ reductions, not a scatter: the same inputs give the same bits on every run.
 
 ``dbscan_cluster_means.iterations`` (label iterations run) and ``.syncs``
 (host checks) count what the function did since they were last set to 0.
-sklearn's ``dbscan_callback_means`` is not ported (ROADMAP.md §1,
-assignment `callback` mode): the card machine has no sklearn.
+
+``dbscan_callback_means`` is the JAX package's sklearn DBSCAN through a
+host callback, for any ``min_samples``. The card machine has no sklearn,
+so it runs sklearn's algorithm on the host in numpy and scipy: the eps
+neighbourhoods (themselves included) from ``scipy.spatial.cKDTree``, and
+sklearn's expansion, which grows one cluster at a time from the core
+points in index order, so that a border point that two clusters reach
+takes the first one's label. No model path calls it, in either package.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 # label iterations between two host checks of convergence. On an H100,
@@ -91,3 +98,52 @@ def dbscan_cluster_means(
 
 dbscan_cluster_means.iterations = 0
 dbscan_cluster_means.syncs = 0
+
+
+def _sklearn_dbscan_labels(points: np.ndarray, eps: float, min_samples: int) -> np.ndarray:
+    """sklearn.cluster.DBSCAN(eps, min_samples).fit(points).labels_: the
+    cluster of each point, -1 for noise."""
+    from scipy.spatial import cKDTree
+
+    neighbourhoods = cKDTree(points).query_ball_point(points, r=eps)
+    is_core = np.asarray([len(nb) >= min_samples for nb in neighbourhoods], dtype=bool)
+    labels = np.full(points.shape[0], -1, dtype=np.intp)
+    label = 0
+    for start in range(points.shape[0]):
+        if labels[start] != -1 or not is_core[start]:
+            continue
+        # sklearn's dbscan_inner: a depth-first expansion that ends at the
+        # non-core points
+        stack, i = [], start
+        while True:
+            if labels[i] == -1:
+                labels[i] = label
+                if is_core[i]:
+                    stack.extend(v for v in neighbourhoods[i] if labels[v] == -1)
+            if not stack:
+                break
+            i = stack.pop()
+        label += 1
+    return labels
+
+
+def dbscan_callback_means(
+    points: torch.Tensor, point_mask: torch.Tensor, eps: float = 0.01, min_samples: int = 2
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sklearn's DBSCAN of the masked points on the host (a sync), padded
+    as ``dbscan_cluster_means``: ``means[i]`` is the mean of the cluster
+    whose first member index is ``i``, valid only there. Returns (means
+    (N, 3) in the points' dtype, valid (N,) bool) on the points' device."""
+    pts = points.detach().cpu().numpy()
+    mask = point_mask.detach().cpu().numpy().astype(bool)
+    means = np.zeros_like(pts)
+    valid = np.zeros(pts.shape[0], dtype=bool)
+    idx = np.nonzero(mask)[0]
+    if len(idx) >= min_samples:
+        labels = _sklearn_dbscan_labels(pts[idx], eps, min_samples)
+        for lab in range(labels.max() + 1):
+            members = idx[labels == lab]
+            rep = members.min()
+            means[rep] = pts[members].mean(axis=0)
+            valid[rep] = True
+    return torch.from_numpy(means).to(points.device), torch.from_numpy(valid).to(points.device)

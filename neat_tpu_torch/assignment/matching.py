@@ -11,13 +11,21 @@ assigned. Once that holds a round changes nothing, so the stop test is made
 every ``_CHECK_EVERY`` rounds with the same result; that test is the
 loop's only host sync. ``auction_assignment.rounds`` and ``.syncs`` count
 the rounds run and the host checks since they were last set to 0.
-The scipy ``callback`` mode waits for a later slice.
+
+The ``callback`` mode is scipy's Hungarian on the host, as the JAX
+package's ``hungarian_callback``: the masked submatrix goes to the host,
+``linear_sum_assignment`` solves it, and the result comes back to the
+cost's device padded as the auction's is. Each call is one host sync;
+``hungarian_callback.syncs`` counts them and ``.host_s`` sums the seconds
+of the host work (the solve and the padding).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 _BIG = 1e9
@@ -109,6 +117,39 @@ auction_assignment.rounds = 0
 auction_assignment.syncs = 0
 
 
+def _scipy_masked_lsa(cost: np.ndarray, row_mask: np.ndarray, col_mask: np.ndarray):
+    """Host-side Hungarian over the masked submatrix, padded back out:
+    (col_for_row (R,) int32, valid (R,) bool), zeros where not valid."""
+    from scipy.optimize import linear_sum_assignment
+
+    rows = np.nonzero(row_mask)[0]
+    cols = np.nonzero(col_mask)[0]
+    col_for_row = np.zeros(cost.shape[0], dtype=np.int32)
+    valid = np.zeros(cost.shape[0], dtype=bool)
+    if len(rows) and len(cols):
+        ri, ci = linear_sum_assignment(cost[np.ix_(rows, cols)])
+        col_for_row[rows[ri]] = cols[ci].astype(np.int32)
+        valid[rows[ri]] = True
+    return col_for_row, valid
+
+
+def hungarian_callback(
+    cost: torch.Tensor, row_mask: torch.Tensor, col_mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scipy's Hungarian on the host (a sync); the result on the cost's
+    device. Returns (col_for_row (R,) int32, valid (R,) bool)."""
+    host = [x.detach().cpu().numpy() for x in (cost, row_mask, col_mask)]
+    hungarian_callback.syncs += 1
+    t0 = time.perf_counter()
+    col, valid = _scipy_masked_lsa(host[0], host[1].astype(bool), host[2].astype(bool))
+    hungarian_callback.host_s += time.perf_counter() - t0
+    return torch.from_numpy(col).to(cost.device), torch.from_numpy(valid).to(cost.device)
+
+
+hungarian_callback.syncs = 0
+hungarian_callback.host_s = 0.0
+
+
 def masked_assignment(
     cost: torch.Tensor,
     row_mask: Optional[torch.Tensor] = None,
@@ -121,9 +162,9 @@ def masked_assignment(
         row_mask = torch.ones(cost.shape[0], dtype=torch.bool, device=cost.device)
     if col_mask is None:
         col_mask = torch.ones(cost.shape[1], dtype=torch.bool, device=cost.device)
+    if method == "callback":
+        return hungarian_callback(cost, row_mask, col_mask)
     if method != "auction":
-        raise NotImplementedError(
-            f"assignment method {method!r} is not ported yet (ROADMAP.md §1, assignment `callback` mode)"
-        )
+        raise ValueError(f"unknown assignment method: {method}")
     col, valid, _ = auction_assignment(cost, row_mask.bool(), col_mask.bool())
     return col, valid

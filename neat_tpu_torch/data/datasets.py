@@ -1,6 +1,5 @@
-"""Scene loading for the ABC (blender) and DTU / BlendedMVS conventions
-(port of the blender and DTU parts of neat_tpu/data/datasets.py, numpy
-only).
+"""Scene loading for the ABC (blender), DTU / BlendedMVS and ScanNet
+conventions (port of neat_tpu/data/datasets.py, numpy only).
 
 A whole scene is packed into fixed-shape arrays (views x pixels) that
 ``train/step.py:scene_to_device`` moves to the device once; each step then
@@ -12,8 +11,10 @@ Ported kinds: ``blender``/``abc`` (cameras.npz{intrinsics, extrinsics}
 with cam2world extrinsics, hawp/*.json wireframes), ``blender_plain`` (no
 wireframes, every pixel trainable), ``dtu``/``scene``
 (cameras.npz{world_mat_i, scale_mat_i}, P = world_mat @ scale_mat
-decomposed into K and cam2world, optional depth cues) and ``dtu_plain``.
-The ScanNet and scene_line kinds raise ``NotImplementedError``.
+decomposed into K and cam2world, optional depth cues), ``dtu_plain``,
+``scannet`` (pose/*.txt cam2world, one shared 4x4 intrinsic.txt, optional
+sparse depth_colmap/*.npy cues) and ``scene_line`` (a DTU scene with depth
+cues from precomputed 3D lines, ``attach_line_depth_cues``).
 """
 
 from __future__ import annotations
@@ -27,18 +28,45 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..core.camera import load_k_rt_from_p
+from .bmp import read_bmp
 from .encodels import attraction_support
 from .png import read_png
 from .wireframe import WireframeGraph
 
 
+def _read_image(path: str) -> np.ndarray:
+    """The samples of a PNG or BMP file, as the JAX package's imageio read
+    returns them; the files it cannot take raise, saying why."""
+    if path.lower().endswith(".npy"):
+        raise ValueError(
+            f"{path}: an .npy image, which the JAX package's loader cannot read either (imageio has no "
+            "backend for .npy; ROADMAP.md §3)"
+        )
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if magic.startswith(b"\x89PNG"):
+        return read_png(path)
+    if magic.startswith(b"BM"):
+        return read_bmp(path)
+    if magic.startswith(b"\xff\xd8\xff"):
+        raise NotImplementedError(
+            f"{path}: JPEG is not ported (ROADMAP.md §1, data): the card machine has no JPEG decoder, and one "
+            "written here would not equal libjpeg's IDCT bit for bit"
+        )
+    raise ValueError(f"{path}: neither a PNG nor a BMP file")
+
+
 def _load_rgb(path: str) -> np.ndarray:
     """Image as float32 [0, 1], (H, W, 3): 8-bit samples / 255, 16-bit ones
-    / 65535, gray repeated to three channels, alpha dropped. Only PNG is
-    read; any other file raises."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(f"{path}: only PNG images are read")
-    img = read_png(path)
+    / 65535, gray repeated to three channels, alpha dropped, a palette
+    expanded. PNG and 24- or 32-bit uncompressed BMP are read; gray with
+    alpha, .npy and JPEG raise."""
+    img = _read_image(path)
+    if img.ndim == 3 and img.shape[-1] == 2:
+        raise ValueError(
+            f"{path}: gray with alpha: the JAX package's loader returns 2 channels here, which its scene "
+            "loaders cannot pack into RGB (ROADMAP.md §3)"
+        )
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0
     else:
@@ -369,24 +397,189 @@ def load_dtu_scene(
     return scene
 
 
-_LOADERS = {"blender": load_blender_scene, "abc": load_blender_scene, "dtu": load_dtu_scene,
-            "scene": load_dtu_scene}
-# kinds of the JAX package that are not ported yet -> their ROADMAP.md §1 item
-_UNPORTED = {"scannet": "data", "scene_line": "data"}
+def load_scannet_scene(
+    data_dir: str,
+    img_res: Tuple[int, int],
+    scan_id="",
+    data_root: str = "../data",
+    line_detector: str = "hawp",
+    distance_threshold: float = 5.0,
+    score_threshold: float = 0.05,
+    with_wireframes: bool = True,
+    max_verts: Optional[int] = None,
+    encodels_backend: str = "native",
+    depth_name: str = "depth_colmap",
+) -> SceneData:
+    """ScanNet-style scene ``<data_root>/<data_dir>[/<scan_id>]``: images in
+    images/ (or color/), a cam2world pose/<stem>.txt per view, one 4x4
+    intrinsic.txt (or intrinsic/intrinsic_color.txt, or intrinsics.txt)
+    shared by every view, hawp/<stem>.json, and optional sparse depth cues
+    ``<depth_name>/<stem>.npy`` with every depth above 2 m set to 0; a view
+    without a cue file has none. A view with no wireframe file, or whose
+    wireframe has no vertex, no edge or no line above ``score_threshold``,
+    is dropped. ``scale_mat`` is the identity."""
+    instance_dir = (
+        osp.join(data_root, data_dir, str(scan_id))
+        if scan_id not in (None, "")  # scan id 0 is a directory name
+        else osp.join(data_root, data_dir)
+    )
+    if not osp.exists(instance_dir):
+        raise FileNotFoundError(f"Data directory {instance_dir} is empty")
+    image_paths = _glob_imgs(osp.join(instance_dir, "images")) or _glob_imgs(osp.join(instance_dir, "color"))
+
+    intr_path = osp.join(instance_dir, "intrinsic.txt")
+    if not osp.exists(intr_path):  # the other layouts ScanNet exports come in
+        intr_path = osp.join(instance_dir, "intrinsic", "intrinsic_color.txt")
+    if not osp.exists(intr_path):
+        intr_path = osp.join(instance_dir, "intrinsics.txt")
+    intr = np.loadtxt(intr_path).astype(np.float32).reshape(4, 4)
+
+    h, w = img_res
+    rgbs, poses, wireframes, lines_list, valid_ids, depths = [], [], [], [], [], []
+    for i, path in enumerate(image_paths):
+        stem = osp.splitext(osp.basename(path))[0]
+        if with_wireframes:
+            hawp_path = osp.join(instance_dir, line_detector, stem + ".json")
+            if not osp.exists(hawp_path):
+                continue
+            wf = WireframeGraph.load_json(hawp_path)
+            if wf.num_vertices == 0 or wf.num_edges == 0:
+                continue
+            ln = wf.line_segments(score_threshold)
+            if ln.shape[0] == 0:
+                continue
+            wireframes.append(wf)
+            lines_list.append(ln)
+        poses.append(np.loadtxt(osp.join(instance_dir, "pose", stem + ".txt")).astype(np.float32).reshape(4, 4))
+        img = _load_rgb(path)
+        if img.shape[:2] != tuple(img_res):
+            raise ValueError(f"{path}: image {img.shape} vs conf img_res {img_res}")
+        rgbs.append(img.reshape(-1, 3))
+        depth_path = osp.join(instance_dir, depth_name, stem + ".npy")
+        if osp.exists(depth_path):
+            d = np.load(depth_path).astype(np.float32).reshape(h * w)
+            d[d > 2.0] = 0.0
+        else:
+            d = np.zeros(h * w, np.float32)
+        depths.append(d)
+        valid_ids.append(i)
+
+    scene = SceneData(
+        rgb=np.stack(rgbs),
+        intrinsics=np.tile(intr[None], (len(rgbs), 1, 1)),
+        pose=np.stack(poses),
+        img_res=tuple(img_res),
+        scale_mat=np.eye(4, dtype=np.float32),
+        view_ids=np.asarray(valid_ids, dtype=np.int32),
+    )
+    if any(d.any() for d in depths):
+        scene.depth = np.stack(depths)
+    if with_wireframes:
+        _attach_wireframes(scene, wireframes, lines_list, distance_threshold, max_verts, encodels_backend)
+    return scene
 
 
-def _check_ported(kind: str) -> None:
-    if kind in _UNPORTED:
-        raise NotImplementedError(
-            f"scene kind {kind!r} is not ported yet (ROADMAP.md §1, {_UNPORTED[kind]}); "
-            "blender, abc, blender_plain, dtu, scene and dtu_plain load"
+def attach_line_depth_cues(
+    scene: SceneData,
+    lines_npz: str,
+    n_points: int = 32,
+    match_threshold: float = 10.0,
+    score_threshold: float = 0.05,
+) -> SceneData:
+    """Depth cues from precomputed 3D lines (the ``lines3d`` array of an npz:
+    (M, 2, 3), or an object array of such), per view: each detected 2D line
+    above ``score_threshold`` is matched to the nearest projected 3D line
+    (the smaller of the two endpoint orders' squared distances, below
+    ``match_threshold``); ``n_points`` samples along each matched 3D
+    segment in the camera frame write their camera-space depth at the
+    rounded pixel they land on, the nearest sample winning where two land
+    on one pixel. The cues fill ``scene.depth`` (0 where none); where the
+    scene has depth already, the cues override it where they fall. In f64
+    as the JAX package computes it."""
+    raw = np.load(lines_npz, allow_pickle=True)["lines3d"]
+    if raw.dtype == object:
+        lines3d = np.concatenate([np.asarray(t) for t in raw], axis=0)
+    else:
+        lines3d = raw.reshape(-1, 2, 3)
+    lines3d = lines3d.astype(np.float64)
+
+    h, w = scene.img_res
+    depth_maps = np.zeros((scene.n_images, h * w), dtype=np.float32)
+    t = np.linspace(0.0, 1.0, n_points)[None, :, None]
+
+    for view in range(scene.n_images):
+        k3 = scene.intrinsics[view][:3, :3].astype(np.float64)
+        w2c = np.linalg.inv(scene.pose[view].astype(np.float64))
+        r, tr = w2c[:3, :3], w2c[:3, 3]
+
+        cam_pts = lines3d.reshape(-1, 3) @ r.T + tr
+        proj = cam_pts @ k3.T
+        z = proj[:, 2:]
+        z = np.where(np.abs(z) < 1e-8, 1e-8, z)
+        l2d = (proj[:, :2] / z).reshape(-1, 4)
+
+        det = scene.lines[view][: scene.n_lines[view]]
+        det = det[det[:, 4] > score_threshold]
+        if det.shape[0] == 0:
+            continue
+        d1 = ((l2d[:, None] - det[None, :, :4]) ** 2).sum(-1)
+        d2 = ((l2d[:, None] - det[None, :, [2, 3, 0, 1]]) ** 2).sum(-1)
+        dis = np.minimum(d1, d2)  # (3D lines, detected lines)
+        mindis = dis.min(axis=0)
+        minidx = dis.argmin(axis=0)
+        avail = mindis < match_threshold
+        if avail.sum() == 0:
+            continue
+        sel = lines3d[minidx[avail]]  # (M, 2, 3) world
+
+        cam_lines = sel @ r.T + tr
+        pts3d = (cam_lines[:, :1] * t + cam_lines[:, 1:] * (1.0 - t)).reshape(-1, 3)
+        pts3d = pts3d[pts3d[:, 2] > 1e-6]
+        if pts3d.shape[0] == 0:
+            continue
+        pix = pts3d @ k3.T
+        uv = pix[:, :2] / pix[:, 2:]
+        xi = np.round(uv[:, 0]).astype(np.int64)
+        yi = np.round(uv[:, 1]).astype(np.int64)
+        ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        flat = yi[ok] * w + xi[ok]
+        depth = pts3d[ok, 2].astype(np.float32)
+        # the nearest sample wins: written last, in the JAX package's order
+        order = np.argsort(-depth)
+        depth_maps[view][flat[order]] = depth[order]
+
+    if scene.depth is not None:
+        scene.depth = np.where(depth_maps > 0, depth_maps, scene.depth)
+    else:
+        scene.depth = depth_maps
+    return scene
+
+
+def load_scene_line_scene(
+    lines_npz: str,
+    depth_match_threshold: float = 10.0,
+    depth_points_per_line: int = 32,
+    **kwargs,
+) -> SceneData:
+    """A DTU-layout scene (``load_dtu_scene``'s keywords) with the depth
+    cues of precomputed 3D lines (``attach_line_depth_cues``)."""
+    if not lines_npz:
+        raise ValueError(
+            "scene_line datasets require dataset.lines_npz (a precomputed lines3d npz, e.g. a previous "
+            "distillation or COLMAP line reconstruction) in the conf"
         )
+    return attach_line_depth_cues(
+        load_dtu_scene(**kwargs), lines_npz, n_points=depth_points_per_line, match_threshold=depth_match_threshold
+    )
+
+
+_LOADERS = {"blender": load_blender_scene, "abc": load_blender_scene, "dtu": load_dtu_scene,
+            "scene": load_dtu_scene, "scene_line": load_scene_line_scene, "scannet": load_scannet_scene}
 
 
 def load_scene(kind: str, **kwargs) -> SceneData:
-    """Dispatch by convention name: 'blender'/'abc', 'dtu'/'scene'. The JAX
-    package's 'scannet' and 'scene_line' raise ``NotImplementedError``."""
-    _check_ported(kind)
+    """Dispatch by convention name: 'blender'/'abc', 'dtu'/'scene',
+    'scene_line', 'scannet'."""
     return _LOADERS[kind](**kwargs)
 
 
@@ -431,11 +624,9 @@ def load_scene_for_config(
     with_wireframes: Optional[bool] = None,
 ) -> SceneData:
     """Build the scene an ExperimentConfig describes. ``distance_threshold``
-    overrides the conf value. Kinds ``blender``, ``blender_plain``, ``dtu``,
-    ``scene`` and ``dtu_plain`` load; the others raise
-    ``NotImplementedError``."""
+    overrides the conf value. A scene_line scene keeps its line tables but
+    draws training pixels from the whole image."""
     kind = cfg.dataset_kind
-    _check_ported(kind)
     kwargs = dict(
         data_dir=cfg.data_dir,
         img_res=cfg.img_res,
@@ -452,6 +643,13 @@ def load_scene_for_config(
         kwargs["with_wireframes"] = with_wireframes
     if kind in ("dtu", "scene"):
         return load_scene("dtu", scan_id=cfg.scan_id, depth_dir=cfg.depth_dir, **kwargs)
+    if kind == "scene_line":
+        # file depth loads first; the line cues override it where they fall
+        scene = load_scene("scene_line", scan_id=cfg.scan_id, lines_npz=cfg.lines_npz, depth_dir=cfg.depth_dir,
+                           **kwargs)
+        return _uniform_support(scene)
+    if kind == "scannet":
+        return load_scene("scannet", scan_id=cfg.scan_id, **kwargs)
     if kind == "blender_plain":
         kwargs["with_wireframes"] = False
         return _plain_trainable(load_scene("blender", **kwargs))

@@ -2,13 +2,14 @@
 
 The JAX package reads and writes scene images through imageio; the port
 needs no image library. ``read_png`` decodes non-interlaced PNGs of 8- or
-16-bit samples in gray, RGB or RGBA, with any of the five scanline filters,
-and returns the samples as stored: uint8, or uint16 for 16-bit files. (For
-16-bit RGB or RGBA, imageio's Pillow backend keeps only the high byte of
-each sample; this reader keeps all 16 bits.) Every other PNG (palette,
-gray with alpha, bit depths below 8, interlaced) and every damaged file
-raises ``ValueError``. ``write_png`` writes 8-bit RGB with filter 0 on
-every row.
+16-bit samples in gray, gray with alpha, RGB or RGBA, with any of the five
+scanline filters, and returns the samples as stored: uint8, or uint16 for
+16-bit files. (For 16-bit RGB or RGBA, imageio's Pillow backend keeps only
+the high byte of each sample; this reader keeps all 16 bits.) Palette PNGs
+(1-, 2-, 4- or 8-bit indices) come back as imageio gives them: each index
+looked up in ``PLTE``, RGB uint8, any ``tRNS`` transparency dropped. Every
+other PNG (gray below 8 bits, interlaced) and every damaged file raises
+``ValueError``. ``write_png`` writes 8-bit RGB with filter 0 on every row.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> samples per pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # color type -> samples per pixel
+_PALETTE = 3
 
 
 def _chunks(data: bytes, path):
@@ -89,17 +91,33 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int, path) -> np.ndarra
     return out
 
 
+def _palette_indices(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """(H, stride) packed rows of ``depth``-bit indices -> (H, W) indices,
+    the most significant bits first, as PNG packs them."""
+    if depth == 8:
+        return rows[:, :width]
+    per_byte = 8 // depth
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # e.g. 6, 4, 2, 0 for 2-bit
+    unpacked = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return unpacked.reshape(rows.shape[0], rows.shape[1] * per_byte)[:, :width]
+
+
 def read_png(path) -> np.ndarray:
-    """The samples of a PNG file: (H, W) for gray, (H, W, 3|4) for RGB|RGBA;
-    uint8 for 8-bit files, uint16 for 16-bit ones."""
+    """The samples of a PNG file: (H, W) for gray, (H, W, 2|3|4) for gray
+    with alpha|RGB|RGBA; uint8 for 8-bit files, uint16 for 16-bit ones; a
+    palette file as its colors, (H, W, 3) uint8."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            if len(body) % 3:
+                raise ValueError(f"{path}: a PLTE chunk of {len(body)} bytes")
+            palette = np.frombuffer(body, dtype=np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -108,21 +126,31 @@ def read_png(path) -> np.ndarray:
         raise ValueError(f"{path}: no IHDR or no IDAT chunk")
     width, height, depth, color, compression, filtering, interlace = header
     if color not in _CHANNELS:
-        raise ValueError(f"{path}: PNG color type {color} is not read (gray 0, RGB 2, RGBA 6 are)")
-    if depth not in (8, 16):
-        raise ValueError(f"{path}: bit depth {depth} is not read (8 and 16 are)")
+        raise ValueError(
+            f"{path}: PNG color type {color} is not read (gray 0, RGB 2, palette 3, gray-alpha 4, RGBA 6 are)"
+        )
+    depths = (1, 2, 4, 8) if color == _PALETTE else (8, 16)
+    if depth not in depths:
+        raise ValueError(f"{path}: bit depth {depth} is not read for color type {color} ({depths} are)")
     if compression != 0 or filtering != 0 or interlace != 0:
         raise ValueError(
             f"{path}: compression {compression}, filter method {filtering}, interlace {interlace}: "
             "only 0, 0, 0 is read"
         )
+    if color == _PALETTE and palette is None:
+        raise ValueError(f"{path}: a palette image with no PLTE chunk")
     channels = _CHANNELS[color]
-    bpp = channels * depth // 8
+    bpp = max(channels * depth // 8, 1)  # filters work on whole bytes
     try:
         raw = zlib.decompress(b"".join(idat))
     except zlib.error as e:
         raise ValueError(f"{path}: image data does not inflate ({e})") from e
-    rows = _unfilter(raw, height, width * bpp, bpp, path)
+    rows = _unfilter(raw, height, (width * channels * depth + 7) // 8, bpp, path)
+    if color == _PALETTE:
+        idx = _palette_indices(rows, width, depth)
+        if int(idx.max(initial=0)) >= len(palette):
+            raise ValueError(f"{path}: an index {int(idx.max())} past the {len(palette)}-color palette")
+        return palette[idx]
     if depth == 16:
         img = rows.view(">u2").astype(np.uint16)
     else:

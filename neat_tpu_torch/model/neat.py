@@ -175,7 +175,6 @@ _UNPORTED = {
     "dual_batch": False,
     "dbscan_include_global": False,
     "junction_eikonal": False,
-    "assignment_method": "auction",
 }
 
 

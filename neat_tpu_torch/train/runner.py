@@ -16,7 +16,12 @@ The experiment directory is the JAX package's::
 
 An epoch is one step per view (``nepoch`` N runs epochs 0 .. N). Each step
 draws from a generator seeded by ``train/step.py:step_generator``.
-Metrics stay on the device until the epoch's log line.
+Metrics stay on the device until the epoch's log line, one transfer an
+epoch. ``--epoch_scan`` runs an epoch's steps through one
+``make_train_multi_step`` call, on the same generators: the same bits as
+the steps one by one. ``--debug_nans`` makes every step check its loss and
+gradients (``utils/profiling.py``). ``--batch_size`` is accepted and
+ignored, as in the JAX package: a step is one view's rays.
 
 The runner runs on a CUDA device unless ``device="cpu"`` (``--device
 cpu``) is asked for; with no CUDA device it raises. On the card the
@@ -46,9 +51,10 @@ import torch
 from ..data.datasets import load_scene_for_config
 from ..fields.mlp import global_junctions_forward
 from ..model.neat import init_neat
+from ..utils.profiling import enable_nan_debugging, nan_debugging_enabled
 from .checkpoint import load_checkpoint, restore_state, save_checkpoint
 from .config import dump_hocon, load_experiment_config
-from .step import init_train_state, make_train_step, scene_to_device, step_generator
+from .step import init_train_state, make_train_multi_step, make_train_step, scene_to_device, step_generator
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -64,12 +70,14 @@ class TrainRunner:
         expname_suffix: str = "",
         scan_id: int = -1,
         nepochs: int = 2000,
+        batch_rays: Optional[int] = None,
         is_continue: bool = False,
         timestamp: str = "latest",
         checkpoint: str = "latest",
         max_verts: int = 512,
         assignment_method: str = "auction",
         seed: int = 42,
+        log_every_epochs: int = 1,
         use_tb: bool = False,
         use_mesh: bool = False,
         do_vis: bool = False,
@@ -81,11 +89,9 @@ class TrainRunner:
     ):
         for asked, what, item in (
             (use_mesh, "the data-parallel mesh (--mesh)", "multi-GPU"),
-            (epoch_scan, "--epoch_scan", "config / runner / checkpoint"),
             (use_tb, "TensorBoard logging (--use_tb)", "periphery"),
             (do_vis, "preview plots (--do_vis)", "periphery"),
             (gitexp, "--gitexp", "periphery"),
-            (assignment_method != "auction", f"assignment {assignment_method!r}", "assignment `callback` mode"),
         ):
             if asked:
                 raise _unported(what, item)
@@ -110,6 +116,8 @@ class TrainRunner:
         if self.cfg.scan_id != -1:
             self.expname = f"{self.expname}/{self.cfg.scan_id}"
         self.seed = seed
+        self.epoch_scan = epoch_scan
+        self.log_every_epochs = log_every_epochs
 
         # ----- experiment directories
         self.expdir = osp.join(exps_folder, self.expname)
@@ -149,7 +157,7 @@ class TrainRunner:
         if self.cfg.data_dir == "BlendedMVS":
             self.cfg = dataclasses.replace(self.cfg, nepochs=int(200000 / self.n_views))
 
-        self.n_rays = self.cfg.num_pixels
+        self.n_rays = batch_rays or self.cfg.num_pixels
         self.decay_steps = self.cfg.nepochs * self.n_views
 
         # ----- the kernels, for the canonical architecture on the card
@@ -192,7 +200,7 @@ class TrainRunner:
                 )
 
         self.scene_dev = scene_to_device(self.scene, self.device)
-        self.step_fn = make_train_step(
+        self.step_fn = (make_train_multi_step if epoch_scan else make_train_step)(
             self.cfg.model,
             self.cfg.loss,
             self.cfg.learning_rate,
@@ -276,23 +284,36 @@ class TrainRunner:
             self.dump_junctions(epoch)
 
             t0 = time.time()
-            metrics = []
-            for _ in range(self.n_views):
-                gen = step_generator(self.seed, epoch - self.start_epoch, self.state.step, self.device)
-                self.state, aux = self.step_fn(self.state, self.scene_dev, gen)
-                metrics.append(aux)
+            # a generator per step, a function of the step count each has
+            # when it runs: the same in both modes
+            gens = [
+                step_generator(self.seed, epoch - self.start_epoch, self.state.step + i, self.device)
+                for i in range(self.n_views)
+            ]
+            if self.epoch_scan:
+                self.state, stacked = self.step_fn(self.state, self.scene_dev, gens)
+            else:
+                metrics = []
+                for gen in gens:
+                    self.state, aux = self.step_fn(self.state, self.scene_dev, gen)
+                    metrics.append(aux)
+                stacked = {k: torch.stack([a[k] for a in metrics]) for k in metrics[0]}
 
-            # one transfer per metric for the whole epoch
-            means = {k: float(torch.stack([a[k] for a in metrics]).mean()) for k in metrics[0]}
-            msg = " ".join(f"{k} = {v:.4f}" for k, v in sorted(means.items()))
-            rays_s = self.n_views * self.n_rays / max(time.time() - t0, 1e-9)
-            self.logger.info(f"{self.expname} [{epoch}/{cfg.nepochs}]: {msg} ({rays_s:,.0f} rays/s)")
+            if epoch % self.log_every_epochs == 0:
+                # one transfer for the whole epoch's metrics
+                keys = sorted(stacked)
+                means = torch.stack([stacked[k].mean() for k in keys]).tolist()
+                msg = " ".join(f"{k} = {v:.4f}" for k, v in zip(keys, means))
+                rays_s = self.n_views * self.n_rays / max(time.time() - t0, 1e-9)
+                self.logger.info(f"{self.expname} [{epoch}/{cfg.nepochs}]: {msg} ({rays_s:,.0f} rays/s)")
         return epoch
 
 
 def main(argv=None) -> TrainRunner:
     parser = argparse.ArgumentParser(description="neat_tpu_torch trainer (one device)")
     parser.add_argument("--conf", type=str, required=True)
+    parser.add_argument("--batch_size", type=int, default=1,
+                        help="views per step: accepted and ignored, as in the JAX trainer (a step is one view)")
     parser.add_argument("--nepoch", type=int, default=2000)
     parser.add_argument("--expname", type=str, default="")
     parser.add_argument("--scan_id", type=int, default=-1)
@@ -301,25 +322,36 @@ def main(argv=None) -> TrainRunner:
     parser.add_argument("--is_continue", default=False, action="store_true")
     parser.add_argument("--timestamp", default="latest", type=str)
     parser.add_argument("--checkpoint", default="latest", type=str)
+    parser.add_argument("--assignment", default="auction", choices=["auction", "callback"],
+                        help="junction assignment: the auction on the device, or scipy's Hungarian on the host")
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--epoch_scan", default=False, action="store_true",
+                        help="run each epoch's steps through one multi-step call (the same bits as one by one)")
     parser.add_argument("--field_dtype", default=None, choices=["float32", "bfloat16"],
                         help="override model.field_compute_dtype (precision of the main field pass)")
     parser.add_argument("--field_path", default=None, choices=["xla", "recompute", "stash"],
                         help="main field pass: the plain PyTorch path (the JAX package's name, 'xla'), "
                         "K3 with its recomputing backward, or K2 with its stashed backward")
+    parser.add_argument("--debug_nans", default=False, action="store_true",
+                        help="check every step's loss and gradients and raise FloatingPointError where one "
+                        "is not finite (one host sync a step)")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (default; raises without a CUDA device) or 'cpu'")
     # the JAX trainer's flags whose modules are not ported: each raises
-    parser.add_argument("--assignment", default="auction", choices=["auction", "callback"])
     parser.add_argument("--use_tb", default=False, action="store_true")
     parser.add_argument("--mesh", default=False, action="store_true")
     parser.add_argument("--distributed", default=False, action="store_true")
-    parser.add_argument("--epoch_scan", default=False, action="store_true")
     parser.add_argument("--do_vis", default=False, action="store_true")
     parser.add_argument("--gitexp", default=False, action="store_true")
+    for flag, kind in (("--parallel_mode", str), ("--platform", str), ("--coordinator", str),
+                       ("--num_processes", int), ("--process_id", int)):
+        parser.add_argument(flag, default=None, type=kind)
     args = parser.parse_args(argv)
     if args.distributed:
         raise _unported("--distributed", "multi-GPU")
+    for flag in ("parallel_mode", "platform", "coordinator", "num_processes", "process_id"):
+        if getattr(args, flag) is not None:
+            raise _unported(f"--{flag}", "multi-GPU")
 
     runner = TrainRunner(
         conf=args.conf,
@@ -342,10 +374,12 @@ def main(argv=None) -> TrainRunner:
         epoch_scan=args.epoch_scan,
         device=args.device,
     )
+    previous = enable_nan_debugging(args.debug_nans or nan_debugging_enabled())
     try:
         runner.run()
     finally:
         runner.close()
+        enable_nan_debugging(previous)
     return runner
 
 

@@ -8,13 +8,16 @@ step, the port updates the model's parameters and the moments in place.
 
 A step's random draws come from the generator it is handed; the runner
 seeds one per step with ``step_generator``. ``scene_to_device`` moves a
-packed scene to the device once.
+packed scene to the device once. ``make_train_multi_step`` runs K steps in
+one call (the runner's ``--epoch_scan``). With NaN debugging on
+(``utils/profiling.py``), a step checks its loss and gradients before the
+update and raises ``FloatingPointError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +25,7 @@ import torch
 from ..core.camera import psnr as psnr_fn
 from ..model.loss import LossConfig, neat_loss
 from ..model.neat import NeatConfig, NeatModel, neat_forward
+from ..utils.profiling import check_finite, nan_debugging_enabled
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -127,7 +131,9 @@ def make_train_step(
 
     ``batch`` = (inputs, ground_truth) and ``noise`` (draw_forward_noise's
     dict) may be injected, as the parity tests do with the JAX step's own
-    draws; otherwise both are drawn from ``gen``."""
+    draws; otherwise both are drawn from ``gen``. With NaN debugging on, a
+    non-finite loss or gradient raises ``FloatingPointError`` before the
+    parameters move (one host sync a step)."""
 
     def step(
         state: TrainState,
@@ -145,6 +151,9 @@ def make_train_step(
         params = list(state.model.parameters())
         grads = torch.autograd.grad(losses["loss"], params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        if nan_debugging_enabled():
+            names = [f"the gradient of {name}" for name, _ in state.model.named_parameters()]
+            check_finite(state.step, ["the loss", *names], [losses["loss"], *grads])
         adam_update(state, grads, lr_schedule(lr, decay_rate, decay_steps, state.step))
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
@@ -152,3 +161,43 @@ def make_train_step(
         return state, metrics
 
     return step
+
+
+def make_train_multi_step(
+    model_cfg: NeatConfig,
+    loss_cfg: LossConfig,
+    lr: float,
+    decay_rate: float,
+    decay_steps: int,
+    n_rays: int,
+    img_width: int,
+):
+    """multi(state, scene, gens, batches=None, noises=None) -> (state,
+    metrics stacked on a leading K axis): K steps of ``make_train_step``'s
+    body, the i-th drawing from ``gens[i]`` (or handed ``batches[i]`` and
+    ``noises[i]``), so K sequential steps on the same generators give the
+    same bits. The counterpart of the JAX package's ``lax.scan`` over the
+    step, as a plain loop."""
+    step = make_train_step(model_cfg, loss_cfg, lr, decay_rate, decay_steps, n_rays, img_width)
+
+    def multi(
+        state: TrainState,
+        scene: Optional[Dict[str, torch.Tensor]],
+        gens: Optional[Sequence[torch.Generator]] = None,
+        batches: Optional[Sequence[Tuple[Dict, Dict]]] = None,
+        noises: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+    ):
+        k = len(gens) if gens is not None else len(batches)
+        metrics = []
+        for i in range(k):
+            state, m = step(
+                state,
+                scene,
+                None if gens is None else gens[i],
+                None if batches is None else batches[i],
+                None if noises is None else noises[i],
+            )
+            metrics.append(m)
+        return state, {key: torch.stack([m[key] for m in metrics]) for key in metrics[0]}
+
+    return multi

@@ -49,5 +49,11 @@ def test_masked_assignment_defaults_and_unported_mode():
     col_t, valid_t = tm.masked_assignment(torch.as_tensor(cost))
     np.testing.assert_array_equal(col_t.numpy(), np.asarray(col_j))
     assert valid_t.all() and np.asarray(valid_j).all()
-    with pytest.raises(NotImplementedError):
-        tm.masked_assignment(torch.as_tensor(cost), method="callback")
+    # the callback mode (scipy's Hungarian) is ported; an unknown mode raises as in JAX
+    col_j, valid_j = jm.masked_assignment(jnp.asarray(cost), method="callback")
+    col_t, valid_t = tm.masked_assignment(torch.as_tensor(cost), method="callback")
+    np.testing.assert_array_equal(col_t.numpy(), np.asarray(col_j))
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+    for mod, c in ((jm, jnp.asarray(cost)), (tm, torch.as_tensor(cost))):
+        with pytest.raises(ValueError, match="unknown assignment method"):
+            mod.masked_assignment(c, method="greedy")

@@ -696,3 +696,22 @@ def test_dbscan_on_the_card_matches_the_cpu(setup, check_every):
     m, v = dbscan_cluster_means(pts.cuda(), check_every=check_every)
     assert int(v_ref.sum()) > 100 and torch.equal(v.cpu(), v_ref)
     assert float((m.cpu()[v_ref] - m_ref[v_ref]).abs().max()) <= 1e-6
+
+
+def test_host_assignment_and_dbscan_return_on_the_card(setup):
+    """The callback assignment and dbscan_callback_means take CUDA tensors
+    and give back CUDA tensors equal to their CPU runs."""
+    from neat_tpu_torch.assignment.clustering import dbscan_callback_means
+    from neat_tpu_torch.assignment.matching import masked_assignment
+
+    gen = torch.Generator().manual_seed(8)
+    cost = torch.rand((512, 300), generator=gen)
+    rows, cols = torch.rand(512, generator=gen) < 0.05, torch.rand(300, generator=gen) < 0.7
+    ref = masked_assignment(cost, rows, cols, method="callback")
+    got = masked_assignment(cost.cuda(), rows.cuda(), cols.cuda(), method="callback")
+    assert all(g.is_cuda and torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+    pts = (torch.rand((64, 3), generator=gen) * 0.05).repeat(2, 1)
+    mask = torch.rand(128, generator=gen) < 0.9
+    ref = dbscan_callback_means(pts, mask, min_samples=3)
+    got = dbscan_callback_means(pts.cuda(), mask.cuda(), min_samples=3)
+    assert bool(ref[1].any()) and all(g.is_cuda and torch.equal(g.cpu(), r) for g, r in zip(got, ref))

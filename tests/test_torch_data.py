@@ -210,12 +210,12 @@ def test_png_writer_round_trips_through_imageio(tmp_path):
 
 def test_png_reader_refuses_what_it_does_not_read(tmp_path):
     rs = np.random.RandomState(0)
-    palette = str(tmp_path / "palette.png")
+    bilevel = str(tmp_path / "bilevel.png")
     import PIL.Image
 
-    PIL.Image.fromarray(rs.randint(0, 256, (8, 8, 3)).astype(np.uint8)).convert("P").save(palette)
-    with pytest.raises(ValueError, match="color type 3"):
-        read_png(palette)
+    PIL.Image.fromarray(rs.randint(0, 2, (8, 8)).astype(bool)).save(bilevel)  # gray, 1 bit a sample
+    with pytest.raises(ValueError, match="bit depth 1 is not read for color type 0"):
+        read_png(bilevel)
     good = str(tmp_path / "good.png")
     write_png(good, rs.randint(0, 256, (8, 8, 3)).astype(np.uint8))
     data = bytearray(open(good, "rb").read())
@@ -227,8 +227,10 @@ def test_png_reader_refuses_what_it_does_not_read(tmp_path):
     (tmp_path / "short.png").write_bytes(bytes(data[:30]))
     with pytest.raises(ValueError):
         read_png(str(tmp_path / "short.png"))
-    with pytest.raises(NotImplementedError, match="only PNG"):
-        tdata._load_rgb(str(tmp_path / "image.jpg"))
+    jpeg = str(tmp_path / "image.jpg")
+    PIL.Image.fromarray(rs.randint(0, 256, (8, 8, 3)).astype(np.uint8)).save(jpeg)
+    with pytest.raises(NotImplementedError, match="JPEG is not ported"):
+        tdata._load_rgb(jpeg)
 
 
 @pytest.mark.parametrize("depth,channels", [(8, 1), (8, 3), (8, 4), (16, 1)])
@@ -334,7 +336,8 @@ def test_packed_scene_bit_equal_to_jax(scene_roots, kind, res, monkeypatch):
 def test_dtu_and_bmvs_confs_load_as_in_jax(conf, res, tmp_path, monkeypatch):
     """dtu.conf and bmvs.conf load a DTU-layout scene (their data_dir and
     scan_id, the 5 px default band, the conf's aspect ratio at a small
-    size) bit for bit as JAX's loader does. ScanNet still raises."""
+    size) bit for bit as JAX's loader does. A missing scene directory
+    raises."""
     cfg_j = jconf.load_experiment_config(osp.join(REPO, "confs", conf))
     cfg_t = tconf.load_experiment_config(osp.join(REPO, "confs", conf))
     assert cfg_t.dataset_kind == "dtu" and cfg_t.distance_threshold == 5.0
@@ -352,8 +355,8 @@ def test_dtu_and_bmvs_confs_load_as_in_jax(conf, res, tmp_path, monkeypatch):
         else:
             assert _bits_equal(a, b), name
     assert got.n_images == 3 and (got.support_count > 0).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, data"):
-        tdata.load_scene("scannet", data_dir="x", img_res=(8, 8))
+    with pytest.raises(FileNotFoundError, match="is empty"):
+        tdata.load_scene("scannet", data_dir="x", img_res=(8, 8), data_root=str(tmp_path))
 
 
 def test_port_imports_no_image_plot_or_conf_library():

@@ -435,20 +435,14 @@ def _t64(a):
     return t(a).double() if np.asarray(a).dtype == np.float32 else t(a)
 
 
-@pytest.fixture(scope="module", params=["for_dtu", "abc_1776"])
-def dbscan_trajectory(request, dtu_init):
-    cfg_j, cfg_t = _dbscan_configs(request.param)
-    assert cfg_t.dbscan_enabled and not cfg_t.use_median
-    tneat.check_ported(cfg_t)
-    # the abc-1776 conf differs from for_dtu in its junction count alone:
-    # it starts from for_dtu's weights and their first 64 latents
-    params = dict(dtu_init)
-    params["junctions"] = dict(dtu_init["junctions"], latents=dtu_init["junctions"]["latents"][
-        : cfg_j.junctions.num_junctions])
+def _dbscan_steps(cfg_j, cfg_t, params, n_steps, loss_kw=None):
+    """n_steps f64 training steps in both packages from ``params`` on
+    _batch_and_noise's batches: (loss JAX, loss port, params JAX, params
+    port) after each, and the valid DBSCAN proposals of each port step."""
     model = port_model(params, cfg_t).double()
     scene = small_scene(cfg_j, res=SRES)
     opt = jstep.make_optimizer(LR, DECAY, DECAY_STEPS)
-    loss_cfg_j, loss_cfg_t = jloss.LossConfig(), tloss.LossConfig()
+    loss_cfg_j, loss_cfg_t = jloss.LossConfig(**(loss_kw or {})), tloss.LossConfig(**(loss_kw or {}))
 
     def loss_fn(p, inputs, gt, noise):
         out = jneat.neat_forward(p, inputs, cfg_j, jax.random.PRNGKey(0), training=True, noise=noise)
@@ -477,7 +471,7 @@ def dbscan_trajectory(request, dtu_init):
         with jax.enable_x64(True):
             p_j = _f64(to_numpy(params))
             opt_state = opt.init(p_j)
-            for s in range(3):
+            for s in range(n_steps):
                 inputs, gt, noise = _batch_and_noise(scene, cfg_t, s)
                 p_j, opt_state, m_j = step_j(p_j, opt_state, _f64(inputs), _f64(gt), _f64(noise))
                 batch = ({k: _t64(v) for k, v in inputs.items()}, {k: _t64(v) for k, v in gt.items()})
@@ -486,7 +480,45 @@ def dbscan_trajectory(request, dtu_init):
                             {k: v.detach().clone() for k, v in state_t.model.state_dict().items()}))
     finally:
         tneat.dbscan_cluster_means = orig
+    return out, seen
+
+
+def _dbscan_params(dtu_init, cfg_j):
+    """for_dtu's weights with cfg_j's junction count of their latents: the
+    abc-1776 conf differs from for_dtu in that count alone (64 of 1024)"""
+    params = dict(dtu_init)
+    params["junctions"] = dict(dtu_init["junctions"], latents=dtu_init["junctions"]["latents"][
+        : cfg_j.junctions.num_junctions])
+    return params
+
+
+@pytest.fixture(scope="module", params=["for_dtu", "abc_1776"])
+def dbscan_trajectory(request, dtu_init):
+    cfg_j, cfg_t = _dbscan_configs(request.param)
+    assert cfg_t.dbscan_enabled and not cfg_t.use_median
+    tneat.check_ported(cfg_t)
+    params = _dbscan_params(dtu_init, cfg_j)
+    out, seen = _dbscan_steps(cfg_j, cfg_t, params, 3)
     return request.param, cfg_j, cfg_t, params, out, seen
+
+
+def _worst_entries(p_t, p_j):
+    assert set(p_t) == set(p_j)
+    return {k: float(np.abs(n(p_t[k]) - p_j[k].numpy()).max()) for k in p_j}
+
+
+def test_callback_train_step_matches_jax(dtu_init):
+    """One f64 step of abc-1776's configuration with the ``callback``
+    assignment in the model's junction match and in the loss (scipy's
+    Hungarian on the host in both packages), at the tolerances above."""
+    cfg_j, cfg_t = (dataclasses.replace(c, assignment_method="callback") for c in _dbscan_configs("abc_1776"))
+    tneat.check_ported(cfg_t)
+    [(loss_j, loss_t, p_j, p_t)], seen = _dbscan_steps(
+        cfg_j, cfg_t, _dbscan_params(dtu_init, cfg_j), 1, loss_kw=dict(assignment_method="callback"))
+    assert seen[0] > 0
+    np.testing.assert_allclose(loss_t, loss_j, rtol=1e-4)
+    bad = {k: v for k, v in _worst_entries(p_t, p_j).items() if v > 1e-5}
+    assert not bad, f"parameters off after the callback step: {bad}"
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
@@ -499,9 +531,7 @@ def test_dbscan_train_steps_match_jax(dbscan_trajectory, n_steps):
         loss_j, loss_t, _, _ = traj[s]
         np.testing.assert_allclose(loss_t, loss_j, rtol=1e-4, err_msg=f"{which}: loss after step {s + 1}")
     _, _, p_j, p_t = traj[n_steps - 1]
-    assert set(p_t) == set(p_j)
-    worst = {k: float(np.abs(n(p_t[k]) - p_j[k].numpy()).max()) for k in p_j}
-    bad = {k: v for k, v in worst.items() if v > 1e-5}
+    bad = {k: v for k, v in _worst_entries(p_t, p_j).items() if v > 1e-5}
     assert not bad, f"{which}: parameters off after {n_steps} steps: {bad}"
 
 

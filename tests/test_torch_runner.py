@@ -23,6 +23,7 @@ PyTorch. The largest entry off after the second epoch is printed.
 import os
 import os.path as osp
 import re
+import shutil
 import signal
 
 import jax
@@ -222,16 +223,114 @@ def test_no_cuda_device_raises(workspace, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,item", [
     (["--mesh"], "multi-GPU"),
     (["--distributed"], "multi-GPU"),
-    (["--epoch_scan"], "config / runner / checkpoint"),
+    (["--platform", "cpu"], "multi-GPU"),
     (["--use_tb"], "periphery"),
     (["--do_vis"], "periphery"),
     (["--gitexp"], "periphery"),
-    (["--assignment", "callback"], "assignment `callback` mode"),
+    (["--parallel_mode", "shard_map"], "multi-GPU"),
+    (["--coordinator", "localhost:1234"], "multi-GPU"),
+    (["--num_processes", "2"], "multi-GPU"),
+    (["--process_id", "0"], "multi-GPU"),
 ])
 def test_unported_flags_raise(workspace, tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP.md §1, {item}")):
         R.main(["--conf", str(workspace / "tiny.conf"), "--data_root", str(workspace),
                 "--exps_folder", str(tmp_path), "--device", "cpu", *flag])
+
+
+@pytest.fixture(scope="module")
+def two_views(workspace, tmp_path_factory):
+    """The workspace's scene cut to its first two views (the loader drops
+    the cameras of images it does not find), for the runs below."""
+    d = tmp_path_factory.mktemp("torch_runner_two_views")
+    shutil.copytree(workspace / "toy", d / "toy")
+    for i in (2, 3):
+        os.remove(d / "toy" / "images" / f"image_{i:04d}.png")
+    (d / "tiny.conf").write_text(TINY_CONF)
+    return d
+
+
+def _main(ws, exps, *flags):
+    return R.main(["--conf", str(ws / "tiny.conf"), "--data_root", str(ws),
+                   "--exps_folder", str(exps), "--device", "cpu", "--nepoch", "1", *flags])
+
+
+@pytest.fixture(scope="module")
+def plain_run(two_views, tmp_path_factory):
+    """Two epochs of the two-view scene through the CLI, no flags."""
+    return _main(two_views, tmp_path_factory.mktemp("plain"))
+
+
+def _log_metrics(runner):
+    """The metric part of each epoch line of train.log."""
+    log = open(osp.join(runner.rundir, "train.log")).read()
+    return re.findall(r"\]: (.*) \([0-9,]+ rays/s\)", log)
+
+
+def test_epoch_scan_equals_the_steps_one_by_one(two_views, plain_run, tmp_path):
+    """--epoch_scan runs each epoch's steps in one multi-step call on the
+    same generators: every checkpoint and every logged mean bit for bit."""
+    scan = _main(two_views, tmp_path, "--epoch_scan", "--batch_size", "1")
+    assert scan.epoch_scan and not plain_run.epoch_scan and scan.n_views == 2
+    for tag in ("0", "1", "latest"):
+        a, b = (load_checkpoint(r.ckpt_dir, tag) for r in (plain_run, scan))
+        assert a[1] == b[1] and _same_host_state(a[0], b[0]), tag
+    assert _log_metrics(plain_run) == _log_metrics(scan) and len(_log_metrics(scan)) == 2
+
+
+def test_jax_command_line_flags_train(two_views, plain_run, tmp_path):
+    """--batch_size (ignored, as in the JAX trainer) and --debug_nans (a
+    finite check a step, which moves no bit) train; the NaN switch is off
+    again after main."""
+    from neat_tpu_torch.utils.profiling import nan_debugging_enabled
+
+    flags = _main(two_views, tmp_path, "--batch_size", "4", "--debug_nans")
+    assert not nan_debugging_enabled()
+    assert _same_host_state(load_checkpoint(plain_run.ckpt_dir)[0], load_checkpoint(flags.ckpt_dir)[0])
+
+
+def test_debug_nans_raises_on_a_nan_step(two_views, tmp_path):
+    from neat_tpu_torch.train.step import step_generator
+    from neat_tpu_torch.utils.profiling import enable_nan_debugging
+
+    r = _runner(two_views, tmp_path, nepochs=1)
+    try:
+        def step():
+            return r.step_fn(r.state, r.scene_dev, step_generator(0, 0, r.state.step, "cpu"))
+
+        previous = enable_nan_debugging()
+        try:
+            r.state, aux = step()  # a clean step passes the check
+            assert np.isfinite(float(aux["loss"]))
+            with torch.no_grad():
+                r.state.model.implicit.lin0.v[0, 0] = float("nan")
+            before = host_state(r.state)
+            with pytest.raises(FloatingPointError, match="step 1: the loss is not finite"):
+                step()
+            assert _same_host_state(before, host_state(r.state))  # nothing moved
+        finally:
+            enable_nan_debugging(previous)
+        r.state, aux = step()  # the check off: the NaN goes through
+        assert not np.isfinite(float(aux["loss"])) and r.state.step == 2
+    finally:
+        r.close()
+
+
+def test_check_finite_names_the_first_tensor_at_fault():
+    from neat_tpu_torch.utils.profiling import check_finite
+
+    ok = torch.ones(3)
+    check_finite(7, ["a", "b"], [ok, ok])
+    with pytest.raises(FloatingPointError, match="step 7: b is not finite"):
+        check_finite(7, ["a", "b", "c"], [ok, torch.tensor([1.0, float("inf")]), torch.tensor(float("nan"))])
+
+
+def test_batch_rays_and_log_every_epochs(two_views, tmp_path):
+    r = _run(_runner(two_views, tmp_path, nepochs=2, batch_rays=16, log_every_epochs=2))
+    assert r.n_rays == 16
+    log = open(osp.join(r.rundir, "train.log")).read()
+    assert re.findall(r"tiny \[(\d+)/2\]", log) == ["0", "2"]
+    assert load_checkpoint(r.ckpt_dir)[0]["step"] == 3 * r.n_views
 
 
 def test_scene_to_device_gives_the_bench_scenes_keys(workspace):

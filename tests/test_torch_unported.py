@@ -7,33 +7,35 @@ by a number that a renumbering of the queue would leave pointing elsewhere.
 import dataclasses
 
 import pytest
-import torch
 
-import neat_tpu_torch.assignment.matching as tm
 import neat_tpu_torch.model.neat as tneat
 
 
-def _scannet_scene():
-    from neat_tpu_torch.data.datasets import load_scene
+def _jpeg_view(tmp_path):
+    from neat_tpu_torch.data.datasets import _load_rgb
 
-    load_scene("scannet", data_dir="x", img_res=(8, 8))
+    path = tmp_path / "image_0000.jpg"
+    path.write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    _load_rgb(str(path))
 
 
-def _variant():
+def _variant(tmp_path):
     tneat.check_ported(dataclasses.replace(tneat.NeatConfig.for_abc(), dual_batch=True))
 
 
-def _callback_assignment():
-    tm.masked_assignment(torch.zeros((3, 4)), method="callback")
+def _train_distributed(tmp_path):
+    from neat_tpu_torch.train.runner import main
+
+    main(["--conf", "confs/abc-neat-a.conf", "--distributed", "--device", "cpu"])
 
 
-def _finalize_mesh():
+def _finalize_mesh(tmp_path):
     from neat_tpu_torch.wireframe.finalize import main
 
     main(["--conf", "run/runconf.conf", "--mesh", "4"])
 
 
-def _render_eval_mesh():
+def _render_eval_mesh(tmp_path):
     from neat_tpu_torch.evaluation.render_eval import main
 
     main(["--conf", "run/runconf.conf", "--mesh", "4"])
@@ -42,16 +44,16 @@ def _render_eval_mesh():
 @pytest.mark.parametrize(
     "call,item",
     [
-        (_scannet_scene, "ROADMAP.md §1, data"),
+        (_jpeg_view, "ROADMAP.md §1, data"),
         (_variant, "ROADMAP.md §1, variants"),
-        (_callback_assignment, "ROADMAP.md §1, assignment `callback` mode"),
+        (_train_distributed, "ROADMAP.md §1, multi-GPU"),
         (_finalize_mesh, "ROADMAP.md §1, multi-GPU"),
         (_render_eval_mesh, "ROADMAP.md §1, multi-GPU"),
     ],
-    ids=["scannet_scene", "variant", "callback_assignment", "finalize_mesh", "render_eval_mesh"],
+    ids=["jpeg_view", "variant", "train_distributed", "finalize_mesh", "render_eval_mesh"],
 )
-def test_unported_paths_raise_and_name_their_item(call, item):
+def test_unported_paths_raise_and_name_their_item(call, item, tmp_path):
     with pytest.raises(NotImplementedError) as err:
-        call()
+        call(tmp_path)
     assert item in str(err.value)
     assert "item " not in str(err.value)  # no item number
