@@ -15,6 +15,7 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --only finalize # build K1's and K3's sources; a 1-epoch rundir, then 8. below
     python3 chip_smoke.py --only dtu # build the main path's and the f32 sources; 9. below alone
     python3 chip_smoke.py --only cli # build the main path's sources; 10. below alone
+    python3 chip_smoke.py --only variants # build the main path's sources and the f32 K1's; 11. below alone
     python3 chip_smoke.py --profile --turns 40   # + profiler tables, + step times in turns
 
 Phases, in order; any failure ends the run with a non-zero exit code:
@@ -151,10 +152,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 10. the rest of the trainer (--only cli alone), through the training CLI
    in this process, 5 epochs a run: abc-neat-a on the runner phase's scene
    (generated with --only cli) without and with --epoch_scan from the
-   same seed, whose parameters must be equal (where they are not bit for
-   bit, as when the run without the flag is the process's first training
-   run: the largest difference printed and held to 4x that of the run
-   without the flag repeated); --debug_nans
+   same seed, whose parameters must be equal bit for bit (the run without
+   the flag is the process's first training run with --only cli); --debug_nans
    --batch_size 1, then one clean step and one after a parameter is set to
    NaN, which must raise FloatingPointError; abc-1776 (a generated
    abc/00001776) with the auction and with --assignment callback (two
@@ -167,6 +166,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    syncs of the callback, DBSCAN and the auction a step, scipy's host ms;
    the scenes' generation and load seconds and bytes on the device; the
    phase's seconds.
+11. the reference's model variants and JPEG views (--only variants
+   alone), through the training CLI in this process: each ablation class
+   (rend_c on abc-1776's conf with its DBSCAN, rend_a with
+   model.junction_eikonal, neat_uni, the vanilla VolSDF network, neat_wfr,
+   neat_wfr_a, neat_simple, neat_wfr_dual, neat_along_ray, neat_along_ray_v2)
+   swapped into the conf and trained one epoch of a generated 4-view scene
+   at abc-neat-a's full width, every step counted: K1 5 times (10 for the
+   dual class, 0 for neat_uni and VolSDF), the split K2 once for rend_c,
+   junction_eikonal and neat_uni and not at all for the others, every loss
+   finite; ms/step by the host clock. Finalize on the neat_wfr checkpoint
+   (its eval forward re-evaluates the attraction at l3d; the f32 K1 only),
+   render eval of view 0 on the VolSDF one. Then JPEG: the fixtures of
+   tests/data/jpeg decoded and held to the SHA-256 of the reference's
+   samples, the decode seconds per megapixel of a 968 x 1296 frame, and 3
+   steps on a generated ScanNet-layout scene whose views are the
+   committed JPEG files.
 
 It prints ms/step and rays/s, its seconds, the card line and one
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``. Details go to
@@ -222,7 +237,7 @@ K1_VARIANTS = {"bfloat16": {"scalar": "scalar kernel", "wgmma_exact": "exact sof
 K3_FWD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # The f32 kernels against the plain version in f64: each output's max |err|
 # at most F64_FACTOR x the plain f32 version's against the same f64, or
-# F64_FLOOR of the largest f64 entry (tests/test_torch_tf32.py holds the
+# F64_FLOOR of the largest f64 entry (tests/test_torch_tf32_*_design.py hold the
 # design to the same on the CPU). A single point's f32 error is a matter of
 # chance at that floor's scale (plain f32 was 3e-8 off on one point where
 # the kernel was 5.6e-7 and the floor 3.7e-7), so it is held on 1,000
@@ -515,13 +530,19 @@ def _field_inputs(n, gen):
 
 def library_fwd(model, cfg, xg, dg, cd):
     """The unfused PyTorch route to the field forward: autograd's spatial
-    gradient and the two heads at cd, cuBLAS products (xg, dg require grad)."""
-    from neat_tpu_torch.fields.mlp import attraction_forward, implicit_sdf_feat_grad, render_forward
+    gradient in reverse mode (``fields/mlp.py:_input_grad``, one backward
+    with a graph) and the two heads at cd, cuBLAS products (xg, dg require
+    grad)."""
+    from neat_tpu_torch.fields.mlp import _clamp_sdf, _input_grad, attraction_forward, implicit_forward, render_forward
 
     icfg, rcfg = cfg.implicit, cfg.rendering
 
+    def implicit(pts):
+        out = implicit_forward(model.implicit, pts, icfg, compute_dtype=cd)
+        return _clamp_sdf(out[..., :1], pts, icfg), out[..., 1:]
+
     def lib_fwd():
-        sdf, feats, grads = implicit_sdf_feat_grad(model.implicit, xg, icfg, compute_dtype=cd)
+        (sdf, feats), grads = _input_grad(implicit, xg)
         rgb = render_forward(model.rendering, xg, grads, dg, feats, rcfg, compute_dtype=cd)
         lines = attraction_forward(model.attraction, xg, grads, dg, feats, cfg.attraction, compute_dtype=cd)
         return sdf, grads, rgb, lines
@@ -825,6 +846,19 @@ def dw_work(n):
     return macs, DW.WS_ROWS * 2 * n + 4 * sum(m * o for m, o, _ in prods)
 
 
+def dw_library(ws, prods):
+    """The weight-gradient sums by cuBLAS on the same bf16 workspace: one
+    call a term, accumulating and writing in f32 (torch.mm's out_dtype), a
+    layer's two terms added. No single call computes every layer's sum."""
+    import torch
+
+    out = []
+    for m, o, terms in prods:
+        parts = [torch.mm(ws[ra : ra + m], ws[ry : ry + o].T, out_dtype=torch.float32) for ra, ry in terms]
+        out.append(parts[0] if len(parts) == 1 else parts[0] + parts[1])
+    return out
+
+
 def k2b_bytes(n):
     """Bytes K2-bwd must move for n points: x, d, grads, rgb, the four
     cotangents and the stash read, dx and dd written, the weights and their
@@ -935,7 +969,6 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
                 "producer_ms": lambda: K.field_bwd_rowlocal_kernel(*args),
                 "producer_split_ms": lambda: K.field_bwd_rowlocal_kernel(*args, variant="split"),
                 "producer_plain_ms": lambda: K.field_bwd_rowlocal_plain(flat, x, d, res, cots, icfg, rcfg, cd),
-                "gemm_ms": lambda: DW.field_dw_kernel(ws, n, g),
                 "gemm_plain_ms": lambda: DW.field_dw_plain(ws),
                 # the yardstick: cuBLAS's bf16 products of the same operands (bf16 out), one call a term
                 "gemm_cublas_ms": lambda: [ws[ra : ra + m] @ ws[ry : ry + o].T
@@ -943,6 +976,12 @@ def check_k2b(model, cfg, n, gen, reps, library=False):
             }
             for key, fn in stages.items():
                 rec[key] = time_ms(fn, max(2, reps // 4))
+            # the GEMM beside the library's: in turns, two rounds
+            gemm = {"gemm_ms": lambda: DW.field_dw_kernel(ws, n, g), "gemm_library_ms": lambda: dw_library(ws, prods)}
+            for _ in range(2):
+                for key, fn in gemm.items():
+                    rec[key] = rec.get(key, 0.0) + time_ms(fn, max(2, reps // 4)) / 2
+            rec["gemm_library_err"] = max(rel_err(a, b) for a, b in zip(dw_library(ws, prods), DW.field_dw_plain(ws)))
             prof = profile_calls("k2b", lambda: K.field_bwd_stash_kernel(*args, cd), 3,
                                  os.path.join(OUT_DIR, "profile_k2b.txt"))
         rec["kernels_ms"] = [(key, ms) for ms, _, key in prof["top"][:6]]
@@ -992,7 +1031,9 @@ def print_k2b(r):
                  f"(split {r['producer_split_ms']:.3f}) "
                  f"(plain {r['producer_plain_ms']:.3f}; bound {r['producer_bound_ms']:.3f} by {r['producer_bound_by']}), "
                  f"GEMM {r['gemm_ms']:.3f} ms (plain {r['gemm_plain_ms']:.3f}, cuBLAS bf16 products "
-                 f"{r['gemm_cublas_ms']:.3f}; bound {r['gemm_bound_ms']:.3f} by {r['gemm_bound_by']}); by kernel "
+                 f"{r['gemm_cublas_ms']:.3f}, in turns with the GEMM cuBLAS with f32 accumulation and output "
+                 f"{r['gemm_library_ms']:.3f} (err against the plain version {r['gemm_library_err']:.3g}); bound "
+                 f"{r['gemm_bound_ms']:.3f} by {r['gemm_bound_by']}); by kernel "
                  + ", ".join(f"{k[:40]} {ms:.3f}" for k, ms in r["kernels_ms"]))
     print(line, flush=True)
 
@@ -2912,12 +2953,6 @@ SCANNET_RES, SCANNET_VIEWS, SCANNET_CUE_SHARE = (480, 640), 8, 0.2
 SCENE_LINE_VIEWS = 4
 # epochs of each run through the CLI: the first is left out of ms/step
 CLI_EPOCHS = 5
-# the --epoch_scan run against the sequential one where the two differ (on
-# the card the first training run of a process differs from the later ones
-# in the gradients of plain PyTorch ops, PERF.md §7): its largest parameter
-# difference at most this factor of the sequential run's against itself
-# repeated
-EPOCH_SCAN_FACTOR = 4.0
 
 
 def cli_run(label, args, n_epochs):
@@ -3083,19 +3118,8 @@ def cli_phase(abc_data_root=None):
     seq, scan = (_latest_state(rec[k]["rundir"]) for k in ("sequential", "epoch_scan"))
     rec["bit_equal"] = _same_state(seq, scan)
     rec["scan_diff"] = 0.0 if rec["bit_equal"] else _max_param_diff(seq, scan)
-    if not rec["bit_equal"]:
-        rec["repeat"] = cli_run("abc-neat-a again", args, CLI_EPOCHS)
-        again = _latest_state(rec["repeat"]["rundir"])
-        rec["repeat_diff"] = _max_param_diff(seq, again)
-        # the scan against the repeat, and the first step whose loss differs in each pair
-        rec["scan_equals_repeat"] = _same_state(scan, again)
-        rec["first_loss_differing"] = {
-            f"{a} vs {b}": next((i for i, (x, y) in enumerate(zip(rec[a]["losses"], rec[b]["losses"])) if x != y),
-                                None)
-            for a, b in (("sequential", "epoch_scan"), ("sequential", "repeat"), ("epoch_scan", "repeat"))}
-        require(rec["repeat_diff"] > 0 and rec["scan_diff"] <= EPOCH_SCAN_FACTOR * rec["repeat_diff"],
-                f"epoch_scan: parameters {rec['scan_diff']:.3g} off the sequential run's, which differs from "
-                f"itself repeated by {rec['repeat_diff']:.3g}")
+    # a process's first training run is bit for bit its later ones
+    require(rec["bit_equal"], f"epoch_scan: parameters {rec['scan_diff']:.3g} off the sequential run's")
 
     # --debug_nans and --batch_size through the CLI, then a NaN step
     rec["debug_nans"] = cli_run("abc-neat-a --debug_nans --batch_size 1",
@@ -3160,9 +3184,7 @@ def cli_phase(abc_data_root=None):
 
 
 def print_cli(r, card: str) -> None:
-    for key in ("sequential", "epoch_scan", "repeat", "debug_nans", "auction", "callback"):
-        if key not in r:
-            continue
+    for key in ("sequential", "epoch_scan", "debug_nans", "auction", "callback"):
         c = r[key]
         print(f"cli {c['label']}: {c['steps']} steps in {len(c['calls'])} calls, losses {c['losses'][0]:.4f} .. "
               f"{c['losses'][-1]:.4f}; launches a step {c['launches_per_step']}; {c['median_ms']:.2f} ms/step "
@@ -3172,11 +3194,8 @@ def print_cli(r, card: str) -> None:
               f"{c['auction_syncs_per_step']:.2f}; scipy's host ms a step {c['callback_host_ms_per_step']:.3f} "
               f"(median after the first call); "
               f"{card}", flush=True)
-    diff = "bit for bit" if r["bit_equal"] else (
-        f"largest parameter difference {r['scan_diff']:.3g} (the sequential run repeated: {r['repeat_diff']:.3g}); "
-        f"the scan {'equals' if r['scan_equals_repeat'] else 'differs from'} the repeat bit for bit; the first "
-        f"step whose loss differs: {r['first_loss_differing']}")
-    print(f"cli --epoch_scan against the steps one by one: {diff}", flush=True)
+    print(f"cli --epoch_scan against the steps one by one: {'bit for bit' if r['bit_equal'] else r['scan_diff']}",
+          flush=True)
     print(f"cli --debug_nans: a clean step (loss {r['nan_step']['clean_loss']:.4f}), then a NaN parameter raised "
           f"FloatingPointError: {r['nan_step']['raised']}", flush=True)
     for key in ("scannet", "scene_line"):
@@ -3187,6 +3206,236 @@ def print_cli(r, card: str) -> None:
               f"{[round(x, 4) for x in d['losses']]}, depth terms {[round(x, 4) for x in d['depth_losses']]}, ms "
               f"{[round(x, 1) for x in d['ms']]}; {card}", flush=True)
     print(f"cli phase: {r['seconds']:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 11. the reference's model variants and JPEG views
+# ---------------------------------------------------------------------------
+
+VARIANT_VIEWS = 4  # views of each variant run's scene: its one epoch is 4 steps
+K2_STEP = dict(field_fwd_stash=1, **K2_BWD)
+# label: (train.model_class, the conf it swaps into, extra conf keys, K1
+# launches a step, whether K2 runs: the table of ROADMAP.md §1, variants)
+VARIANTS = {
+    "rend_c": ("model.networks.neat_wfr_rend_c.VolSDFNetwork", ABC_SCAN_CONF, {}, 5, True),
+    "junction_eikonal": ("model.networks.neat_wfr_rend_a.VolSDFNetwork", RUNNER_CONF,
+                         {"model.junction_eikonal": True}, 5, True),
+    "neat_uni": ("model.networks.neat_uni.VolSDFNetwork", RUNNER_CONF, {}, 0, True),
+    "volsdf": ("model.network.VolSDFNetwork", RUNNER_CONF, {}, 0, False),
+    "neat_wfr": ("model.networks.neat_wfr.VolSDFNetwork", RUNNER_CONF, {}, 5, False),
+    "neat_wfr_a": ("model.networks.neat_wfr_a.VolSDFNetwork", RUNNER_CONF, {}, 5, False),
+    "neat_simple": ("model.networks.neat_simple.VolSDFNetwork", RUNNER_CONF, {}, 5, False),
+    "neat_wfr_dual": ("model.networks.neat_wfr_dual.VolSDFNetwork", RUNNER_CONF, {}, 10, False),
+    "neat_along_ray": ("model.neat_along_ray.VolSDFNetwork", RUNNER_CONF, {}, 5, False),
+    "neat_along_ray_v2": ("model.networks.neat_along_ray_v2.VolSDFNetwork", RUNNER_CONF, {}, 5, False),
+}
+JPEG_DIR = os.path.join("tests", "data", "jpeg")
+JPEG_FRAME = "frame_968x1296.jpg"
+JPEG_SCENE = dict(convention="scannet", n_views=4, res=(480, 640), seed=0)  # its views: scannet_480x640/
+
+
+def variant_run(label, conf, data_root, exps, k1, k2):
+    """One epoch (VARIANT_VIEWS steps) of a variant conf through the
+    training CLI in this process; every step counted: K1 ``k1`` times, K2
+    (forward, row-local pass, GEMM) once or not at all, nothing else; every
+    loss finite. ms/step: the host clock around each step, which ends in a
+    sync, the median of the steps after the first."""
+    import torch
+
+    from neat_tpu_torch.train import runner as R
+
+    fns = counters()
+    expected = dict.fromkeys(fns, 0) | {"fused_sdf": k1} | (K2_STEP if k2 else {})
+    rec = {"label": label, "launches": [], "ms": [], "losses": []}
+    orig_run = R.TrainRunner.run
+
+    def run(self):
+        rec.update(rundir=self.rundir, n_views=self.n_views, flags=(self.cfg.model.dbscan_enabled,
+                                                                   self.cfg.model.dbscan_include_global))
+        step_fn = self.step_fn
+
+        def counted(state, scene, gen):
+            before = {name: f.launches for name, f in fns.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, aux = step_fn(state, scene, gen)
+            rec["losses"].append(float(aux["loss"]))
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["launches"].append(_launched(fns, before))
+            return state, aux
+
+        self.step_fn = counted
+        return orig_run(self)
+
+    R.TrainRunner.run = run
+    try:
+        for f in fns.values():
+            f.launches = 0
+        R.main(["--conf", conf, "--data_root", data_root, "--exps_folder", exps, "--nepoch", "0"])
+    finally:
+        R.TrainRunner.run = orig_run
+    require(len(rec["ms"]) == rec["n_views"] == VARIANT_VIEWS, f"{label}: {len(rec['ms'])} steps")
+    for c in rec["launches"]:
+        require(c == expected, f"{label}: a step launched {c}, expected {expected}")
+    require(all(math.isfinite(x) for x in rec["losses"]), f"{label}: losses {rec['losses']}")
+    rec["median_ms"] = statistics.median(rec["ms"][1:])
+    rec["launches_per_step"] = {k: v for k, v in rec["launches"][0].items() if v}
+    return rec
+
+
+def variant_eval(label, rundir, data_root):
+    """The eval CLIs on a variant's checkpoint, every launch counted: for
+    the wfr class finalize (its eval forward re-evaluates the attraction
+    at l3d; the f32 K1, 5 launches a chunk, and the plain field: its
+    no_view head is not the field kernels'), for the volsdf class render
+    eval of view 0 and its mesh (the f32 K1 alone)."""
+    import glob
+
+    import numpy as np
+
+    import neat_tpu_torch.evaluation.render_eval as RE
+    import neat_tpu_torch.wireframe.finalize as F
+    from neat_tpu_torch.data.datasets import load_scene_for_config
+    from neat_tpu_torch.train.config import load_experiment_config
+
+    fns = counters()
+    conf = os.path.join(rundir, "runconf.conf")
+    cfg = load_experiment_config(conf)
+    rounds = cfg.model.sampler.max_total_iters
+    expect = lambda **kw: dict.fromkeys(fns, 0) | kw
+    rec = {}
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    if label == "neat_wfr":
+        require(cfg.model.eval_attraction_at_l3d, "neat_wfr: the eval branch is off")
+        scene = load_scene_for_config(cfg, data_root, distance_threshold=1.0)
+        chunks = sum(-(-int(m.sum()) // FIN_CHUNK) for m in scene.mask)
+        results = F.main(["--conf", conf, "--checkpoint", "latest", "--vote-ratio", "0.2", "--data_root", data_root])
+        rec.update(what="finalize", chunks=chunks, launches={k: f.launches for k, f in fns.items()})
+        require(rec["launches"] == expect(fused_sdf=rounds * chunks),
+                f"neat_wfr finalize launched {rec['launches']}, expected {rounds} x {chunks} of K1")
+        require(len(glob.glob(os.path.join(rundir, "wireframes", "*-neat.pkl"))) == 1, "neat_wfr: no -neat.pkl")
+        for key, a in results.items():
+            if isinstance(a, np.ndarray):
+                require(bool(np.isfinite(a).all()), f"neat_wfr finalize: non-finite {key}")
+        rec["lines"] = int(results["lines3d_all"].shape[0])
+    else:
+        out = RE.main(["--conf", conf, "--checkpoint", "latest", "--data_root", data_root, "--views", "0"])
+        h, w = cfg.img_res
+        want = rounds * -(-h * w // RENDER_CHUNK) + -(-MESH_RES ** 3 // MESH_CHUNK)
+        rec.update(what="render eval", launches={k: f.launches for k, f in fns.items()}, psnr=out["psnr_mean"])
+        require(rec["launches"] == expect(fused_sdf=want), f"volsdf render eval launched {rec['launches']}")
+        require(math.isfinite(out["psnr_mean"]), "volsdf render eval: non-finite PSNR")
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def jpeg_part(work, data_root, exps):
+    """The JPEG decoder on the card machine's host: the committed fixtures
+    (tests/data/jpeg) decoded, each held to the SHA-256 of the reference's
+    uint8 samples committed beside it; decode seconds per megapixel of the
+    968 x 1296 frame (10 decodes); then 3 steps of abc-neat-a's model on a
+    generated ScanNet-layout scene whose views are the committed JPEG
+    files, the main path's kernels every step."""
+    import hashlib
+    import shutil
+
+    from neat_tpu_torch.data.jpeg import build_native, read_jpeg
+    from neat_tpu_torch.data.synthetic import generate_scene
+    from neat_tpu_torch.train.config import dump_hocon, parse_hocon, put_path
+
+    rec = {}
+    t0 = time.perf_counter()
+    build_native()
+    rec["build_s"] = time.perf_counter() - t0
+    fixtures = os.path.join(REPO, JPEG_DIR)
+    with open(os.path.join(fixtures, "sha256.json")) as f:
+        digests = json.load(f)
+    for name, want in digests.items():
+        got = read_jpeg(os.path.join(fixtures, name))
+        require(list(got.shape) == want["shape"] and hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"],
+                f"jpeg {name}: the samples are not the reference's")
+    rec["fixtures"] = len(digests)
+    frame = os.path.join(fixtures, JPEG_FRAME)
+    img = read_jpeg(frame)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        read_jpeg(frame)
+    rec["decode_s_per_mp"] = (time.perf_counter() - t0) / 10 / (img.shape[0] * img.shape[1] / 1e6)
+    scan_dir = os.path.join(data_root, "scannet", "scene0000_00")
+    generate_scene(scan_dir, **JPEG_SCENE)
+    for i in range(JPEG_SCENE["n_views"]):
+        os.remove(os.path.join(scan_dir, "images", f"image_{i:04d}.png"))
+        shutil.copy(os.path.join(fixtures, "scannet_480x640", f"image_{i:04d}.jpg"), os.path.join(scan_dir, "images"))
+    with open(os.path.join(REPO, RUNNER_CONF)) as f:
+        raw = parse_hocon(f.read())
+    for key, value in (("train.dataset_class", "datasets.scannet_hawp_dataset.SceneDataset"),
+                       ("train.expname", "jpeg_scene"), ("dataset.data_dir", "scannet"),
+                       ("dataset.scan_id", "scene0000_00"), ("dataset.img_res", list(JPEG_SCENE["res"]))):
+        put_path(raw, key, value)
+    path = os.path.join(work, "jpeg_scene.conf")
+    with open(path, "w") as f:
+        f.write(dump_hocon(raw))
+    rec["scene"] = depth_steps(None, path, data_root, exps, label="jpeg scene")
+    require(rec["scene"]["n_views"] == JPEG_SCENE["n_views"], "jpeg scene: not every JPEG view loaded")
+    return rec
+
+
+def variants_phase():
+    """Each model class of VARIANTS trains one epoch of VARIANT_VIEWS steps
+    through the training CLI at abc-neat-a's full width (rend_c on
+    abc-1776's conf, DBSCAN on), its K1 and K2 launches held to the table;
+    finalize on the neat_wfr checkpoint, render eval of one view on the
+    volsdf one; then the JPEG part."""
+    import shutil
+
+    from neat_tpu_torch.data.synthetic import generate_scene
+    from neat_tpu_torch.train.config import dump_hocon, load_experiment_config, parse_hocon, put_path
+
+    t_phase = time.perf_counter()
+    work = os.path.join(OUT_DIR, "variants")
+    shutil.rmtree(work, ignore_errors=True)
+    data_root, exps = os.path.join(work, "data"), os.path.join(work, "exps")
+    for conf, scene in ((RUNNER_CONF, RUNNER_SCENE), (ABC_SCAN_CONF, ABC_SCAN)):
+        res = tuple(load_experiment_config(os.path.join(REPO, conf)).img_res)
+        generate_scene(os.path.join(data_root, scene), n_views=VARIANT_VIEWS, res=res, seed=0)
+    rec = {"runs": {}, "evals": {}}
+    for label, (model_class, conf, extra, k1, k2) in VARIANTS.items():
+        with open(os.path.join(REPO, conf)) as f:
+            raw = parse_hocon(f.read())
+        for key, value in {"train.model_class": model_class, "train.expname": f"variant_{label}", **extra}.items():
+            put_path(raw, key, value)
+        path = os.path.join(work, f"{label}.conf")
+        with open(path, "w") as f:
+            f.write(dump_hocon(raw))
+        r = rec["runs"][label] = variant_run(label, path, data_root, exps, k1, k2)
+        if label == "rend_c":
+            require(r["flags"] == (True, True), f"rend_c: DBSCAN and the global junctions {r['flags']}")
+        if label in ("neat_wfr", "volsdf"):
+            rec["evals"][label] = variant_eval(label, r["rundir"], data_root)
+    rec["jpeg"] = jpeg_part(work, data_root, exps)
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def print_variants(r, card: str) -> None:
+    for label, c in r["runs"].items():
+        print(f"variant {label}: {len(c['ms'])} steps, losses {[round(x, 4) for x in c['losses']]}; launches a step "
+              f"{c['launches_per_step']}; {c['median_ms']:.2f} ms/step (host clock, median after the first step; "
+              f"each {[round(x, 1) for x in c['ms']]}); {card}", flush=True)
+    for label, e in r["evals"].items():
+        extra = f", {e['lines']} lines" if "lines" in e else f", PSNR {e['psnr']:.3f}"
+        print(f"variant {label} {e['what']}: {e['s']:.2f} s, launches "
+              f"{ {k: v for k, v in e['launches'].items() if v} }{extra}", flush=True)
+    j = r["jpeg"]
+    d = j["scene"]
+    print(f"jpeg: decoder built in {j['build_s']:.2f} s; {j['fixtures']} fixtures equal the reference's SHA-256; "
+          f"{j['decode_s_per_mp']:.4f} s per megapixel ({JPEG_FRAME}, the card machine's host); a scene of "
+          f"{d['n_views']} JPEG views of {d['res'][0]} x {d['res'][1]} loaded in {d['scene_load_s']:.2f} s, "
+          f"{DEPTH_STEPS} steps, losses {[round(x, 4) for x in d['losses']]}, ms {[round(x, 1) for x in d['ms']]}; "
+          f"{card}", flush=True)
+    print(f"variants phase: {r['seconds']:.1f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3203,7 +3452,9 @@ ONLY = {"k1": ("fused_sdf", "fused_sdf_tf32"), "k2": ("field_fwd_mma", "fused_fi
         "finalize": ("fused_sdf", "fused_field", "fused_sdf_tf32", "field_fwd_tf32"),
         "dtu": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma", "fused_field",
                 "fused_sdf_tf32", "field_fwd_tf32"),
-        "cli": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma")}
+        "cli": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma"),
+        "variants": ("fused_sdf", "field_fwd_mma", "fused_field_stash", "field_dw_mma", "field_bwd_mma",
+                     "fused_sdf_tf32")}
 
 
 def print_runner(r, card: str) -> None:
@@ -3293,6 +3544,9 @@ def main() -> int:
         elif args.only == "cli":
             report["cli"] = cli_phase()
             print_cli(report["cli"], card)
+        elif args.only == "variants":
+            report["variants"] = variants_phase()
+            print_variants(report["variants"], card)
         elif args.only == "k3b":
             report["k3b"], report["k3b_chunk"] = k3b_phase(model, cfg, gen, args.quick, n_main)
             for r in report["k3b"]:
@@ -3400,6 +3654,8 @@ def main() -> int:
         report["dtu"] = dtu_phase()
         report["cli"] = cli_phase(report["runner"]["data_root"])
         print_cli(report["cli"], card)
+        report["variants"] = variants_phase()
+        print_variants(report["variants"], card)
         t1, t3 = k1[0], k3[-1]
         src = "neat_tpu_torch/csrc/"
         kernels = [
@@ -3439,7 +3695,7 @@ def main() -> int:
             name="field_dw", route="cuda", source=src + "field_dw_mma.cu",
             replaces="neat_tpu/ops/fused_field_stash.py:465", launches=runs["main"]["launches"]["field_dw"],
             max_abs_err=tb["gemm_max_abs_err"], ms=tb["gemm_ms"], plain_ms=tb["gemm_plain_ms"],
-            bound_ms=tb["gemm_bound_ms"], bound_by=tb["gemm_bound_by"], library_ms=None))
+            bound_ms=tb["gemm_bound_ms"], bound_by=tb["gemm_bound_by"], library_ms=tb["gemm_library_ms"]))
         # the bf16 K3-bwd (the split backward over chunks; its row-local
         # pass's source, the bulk of its time), timed in turns at the main
         # path's size against its chunked plain version; and the three

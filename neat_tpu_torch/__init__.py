@@ -45,8 +45,15 @@ wrapper launches its kernel for a CUDA tensor and runs the plain PyTorch
 version of the same math only for a CPU tensor (what the CPU tests use);
 there is no fallback from one to the other.
 
-``csrc/encodels.cpp`` is host code, the attraction-field rasterizer that
-packs a scene, built with ``g++`` into ``build/host/``.
+The reference's other model classes (the vanilla VolSDF network, the
+uniform sampler, the wfr, dual and along-ray families) are flags of
+``model/neat.py``; on the card they take K1 and K2 where their heads are
+the kernels' (``train/runner.py``).
+
+``csrc/encodels.cpp``, the attraction-field rasterizer that packs a
+scene, and ``csrc/jpeg.cpp``, the baseline JPEG decoder of the views
+(``data/jpeg.py``), are host code, built with ``g++`` into
+``build/host/``.
 
 Entry points take an explicit ``device`` (default ``"cuda"``) and every
 random draw an explicit ``torch.Generator``.

@@ -29,3 +29,11 @@ def render_weights_from_density(z_vals: torch.Tensor, density: torch.Tensor):
     """z_vals, density: (..., S) -> weights (..., S)."""
     alpha, transmittance, _ = alpha_transmittance(z_vals, density)
     return alpha * transmittance
+
+
+def volume_rendering_weights(z_vals: torch.Tensor, sdf: torch.Tensor, density_params, beta_min: float = 1e-4):
+    """Laplace-density volume rendering weights of per-ray samples:
+    z_vals, sdf (..., S) -> weights (..., S)."""
+    from .density import laplace_density
+
+    return render_weights_from_density(z_vals, laplace_density(sdf, density_params, beta_min=beta_min))

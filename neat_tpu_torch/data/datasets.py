@@ -30,13 +30,14 @@ import numpy as np
 from ..core.camera import load_k_rt_from_p
 from .bmp import read_bmp
 from .encodels import attraction_support
+from .jpeg import read_jpeg
 from .png import read_png
 from .wireframe import WireframeGraph
 
 
 def _read_image(path: str) -> np.ndarray:
-    """The samples of a PNG or BMP file, as the JAX package's imageio read
-    returns them; the files it cannot take raise, saying why."""
+    """The samples of a PNG, BMP or JPEG file, as the JAX package's imageio
+    read returns them; the files it cannot take raise, saying why."""
     if path.lower().endswith(".npy"):
         raise ValueError(
             f"{path}: an .npy image, which the JAX package's loader cannot read either (imageio has no "
@@ -49,18 +50,16 @@ def _read_image(path: str) -> np.ndarray:
     if magic.startswith(b"BM"):
         return read_bmp(path)
     if magic.startswith(b"\xff\xd8\xff"):
-        raise NotImplementedError(
-            f"{path}: JPEG is not ported (ROADMAP.md §1, data): the card machine has no JPEG decoder, and one "
-            "written here would not equal libjpeg's IDCT bit for bit"
-        )
-    raise ValueError(f"{path}: neither a PNG nor a BMP file")
+        return read_jpeg(path)
+    raise ValueError(f"{path}: neither a PNG, a BMP nor a JPEG file")
 
 
 def _load_rgb(path: str) -> np.ndarray:
     """Image as float32 [0, 1], (H, W, 3): 8-bit samples / 255, 16-bit ones
     / 65535, gray repeated to three channels, alpha dropped, a palette
-    expanded. PNG and 24- or 32-bit uncompressed BMP are read; gray with
-    alpha, .npy and JPEG raise."""
+    expanded. PNG, 24- or 32-bit uncompressed BMP and baseline JPEG
+    (``data/jpeg.py``) are read; gray with alpha, .npy and the JPEG kinds
+    the decoder does not take raise."""
     img = _read_image(path)
     if img.ndim == 3 and img.shape[-1] == 2:
         raise ValueError(

@@ -215,6 +215,33 @@ def _input_grad(fn, x):
     return outs, g
 
 
+def _input_grad_recorded(fn, x):
+    """``_input_grad`` for a caller that records a graph: the gradient by
+    forward-mode AD, so that every node of the graph through it is made on
+    the calling thread. A reverse-mode gradient with ``create_graph`` runs,
+    for CUDA tensors, on the autograd engine's device thread, and the nodes
+    it makes are numbered by that thread's own counter; the training step's
+    backward orders its ready nodes by those numbers, so it summed the
+    contributions to a weight in an order that depended on how far each
+    thread's counter had run: a process's first training step came out
+    other than its later ones in the last bits. One pass takes x repeated
+    once per coordinate, each copy with that coordinate's unit tangent; the
+    outputs are the first copy's. Without a graph, ``_input_grad``."""
+    import torch.autograd.forward_ad as fwAD
+
+    if not torch.is_grad_enabled():
+        return _input_grad(fn, x)
+    d = x.shape[-1]
+    flat = x.reshape(-1, d)
+    n = flat.shape[0]
+    tangent = torch.eye(d, dtype=x.dtype, device=x.device).repeat_interleave(n, dim=0)
+    with fwAD.dual_level():
+        unpacked = [fwAD.unpack_dual(o) for o in fn(fwAD.make_dual(flat.repeat(d, 1), tangent))]
+    outs = tuple(u.primal[:n].reshape(*x.shape[:-1], *u.primal.shape[1:]) for u in unpacked)
+    grads = unpacked[0].tangent.reshape(d, n).T.reshape(*x.shape[:-1], d)
+    return outs, grads
+
+
 def implicit_sdf_feat_grad(net, x, cfg: ImplicitNetConfig, compute_dtype=None):
     """(sdf, features, d sdf / d x) with the sphere clamp applied before
     differentiation. x: (N, 3)."""
@@ -223,13 +250,13 @@ def implicit_sdf_feat_grad(net, x, cfg: ImplicitNetConfig, compute_dtype=None):
         out = implicit_forward(net, pts, cfg, compute_dtype=compute_dtype)
         return _clamp_sdf(out[..., :1], pts, cfg), out[..., 1:]
 
-    (sdf, feats), grads = _input_grad(f, x)
+    (sdf, feats), grads = _input_grad_recorded(f, x)
     return sdf, feats, grads
 
 
 def implicit_gradient(net, x, cfg: ImplicitNetConfig):
     """d sdf_raw / d x without the sphere clamp (the eikonal term)."""
-    _, grads = _input_grad(lambda pts: (implicit_forward(net, pts, cfg)[..., 0],), x)
+    _, grads = _input_grad_recorded(lambda pts: (implicit_forward(net, pts, cfg)[..., :1],), x)
     return grads
 
 

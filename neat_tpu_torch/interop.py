@@ -4,8 +4,10 @@
 arrays (nested dicts; the density as ``{"beta": ...}`` or any object with
 ``_asdict``), into a ``state_dict`` for ``model.neat.NeatModel``: the
 module and parameter names are the tree's keys joined with dots, e.g.
-``implicit.lin0.v`` or ``junctions.ffn.lin2.w``. It works from numpy only
-and imports nothing of JAX.
+``implicit.lin0.v`` or ``junctions.ffn.lin2.w``. A variant's tree maps
+the same way: the vanilla VolSDF network's has no attraction and
+junctions, along_ray_v2's a second SDF net (``neat_sdf.lin0.v``). It works
+from numpy only and imports nothing of JAX.
 """
 
 from __future__ import annotations

@@ -1,5 +1,9 @@
 """The NEAT model: VolSDF surface + attraction field + global junctions
-(port of neat_tpu/model/neat.py, default ``neat`` variant).
+(port of neat_tpu/model/neat.py), with the reference's ablation classes as
+flags: the vanilla VolSDF network (``model_variant='volsdf'``), the
+uniform sampler, the attraction at the surface point (the wfr family),
+endpoint rendering along the ray with an optional second SDF, DBSCAN over
+the global junctions too, and junction eikonal points.
 
 ``neat_forward`` is one training-mode (or eval-mode) forward pass with the
 same outputs, detach boundaries and padding masks as the JAX function.
@@ -28,7 +32,7 @@ from ..assignment.clustering import dbscan_cluster_means
 from ..assignment.matching import masked_assignment
 from ..core.camera import get_camera_params, project2d
 from ..core.density import LaplaceDensity, laplace_density
-from ..core.render import render_weights_from_density
+from ..core.render import render_weights_from_density, volume_rendering_weights
 from ..fields.mlp import (
     GlobalJunctionsConfig,
     ImplicitNetConfig,
@@ -46,9 +50,11 @@ from ..fields.mlp import (
 )
 from ..sampling.samplers import (
     ErrorBoundSamplerConfig,
+    UniformSamplerConfig,
     error_bound_z_vals,
     total_final_samples,
     total_proposal_samples,
+    uniform_z_vals,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -59,10 +65,7 @@ class NeatConfig:
     """Field for field the JAX ``NeatConfig``. In this package the kernel
     flags select the hand-written CUDA kernels: ``use_pallas_sampler`` ->
     K1, ``use_pallas_field`` -> K2 (``pallas_field_backward='stash'``) or
-    K3 (``'recompute'``).
-    Only the default ``neat`` variant is ported, with or without DBSCAN
-    junction proposals (``dbscan_enabled``); other variant flags raise
-    ``NotImplementedError`` (ROADMAP.md §1, variants)."""
+    K3 (``'recompute'``). Every variant flag of the JAX config runs."""
 
     feature_vector_size: int = 256
     scene_bounding_sphere: float = 3.0
@@ -165,73 +168,70 @@ def eval_kernel_config(cfg: NeatConfig, device) -> NeatConfig:
     )
 
 
-_UNPORTED = {
-    "model_variant": "neat",
-    "sampler_kind": "error_bound",
-    "attraction_at_surface": False,
-    "eval_attraction_at_l3d": False,
-    "attraction_aggregation": "weighted",
-    "endpoint_sdf_separate": False,
-    "dual_batch": False,
-    "dbscan_include_global": False,
-    "junction_eikonal": False,
-}
-
-
 def check_ported(cfg: NeatConfig) -> None:
-    """Raise for a variant flag this slice does not port."""
-    for name, default in _UNPORTED.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"NeatConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                "(ROADMAP.md §1, variants); only the default neat variant runs"
-            )
-    if cfg.pallas_field_backward not in ("stash", "recompute"):
-        raise ValueError(
-            f"pallas_field_backward is 'stash' or 'recompute', got {cfg.pallas_field_backward!r}"
-        )
+    """Raise for a flag value neither package knows."""
+    choices = {
+        "model_variant": ("neat", "volsdf"),
+        "sampler_kind": ("error_bound", "uniform"),
+        "attraction_aggregation": ("weighted", "endpoint_render"),
+        "pallas_field_backward": ("stash", "recompute"),
+    }
+    for name, allowed in choices.items():
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"NeatConfig.{name} is one of {allowed}, got {getattr(cfg, name)!r}")
 
 
 class NeatModel(nn.Module):
     """Parameter container: implicit, rendering, attraction (layer stacks
-    of lin0..), density (beta) and junctions (latents + ffn)."""
+    of lin0..), density (beta), junctions (latents + ffn) and neat_sdf (a
+    second implicit stack, ``endpoint_sdf_separate``). The vanilla VolSDF
+    network (``model_variant='volsdf'``) has no attraction, junctions or
+    neat_sdf: those are None and absent from the state dict."""
 
-    def __init__(self, implicit, rendering, attraction, density, junctions):
+    def __init__(self, implicit, rendering, attraction=None, density=None, junctions=None, neat_sdf=None):
         super().__init__()
         self.implicit = implicit
         self.rendering = rendering
         self.attraction = attraction
         self.density = density
         self.junctions = junctions
+        self.neat_sdf = neat_sdf
 
 
 def init_neat(cfg: NeatConfig, seed: int = 0, device="cuda") -> NeatModel:
     """Random weights from ``seed`` (drawn on the CPU, so every device gets
-    the same ones), moved to ``device``."""
+    the same ones), moved to ``device``: the modules of ``cfg``'s variant,
+    drawn in the order implicit, rendering, attraction, junctions,
+    neat_sdf."""
     check_ported(cfg)
     gen = torch.Generator().manual_seed(seed)
-    model = NeatModel(
-        implicit=init_implicit_net(gen, cfg.implicit),
-        rendering=init_render_net(gen, cfg.rendering),
-        attraction=init_attraction_net(gen, cfg.attraction),
-        density=LaplaceDensity(cfg.density_beta_init),
-        junctions=init_global_junctions(gen, cfg.junctions),
-    )
+    implicit = init_implicit_net(gen, cfg.implicit)
+    rendering = init_render_net(gen, cfg.rendering)
+    heads = {}
+    if cfg.model_variant == "neat":
+        heads["attraction"] = init_attraction_net(gen, cfg.attraction)
+        heads["junctions"] = init_global_junctions(gen, cfg.junctions)
+        if cfg.endpoint_sdf_separate:
+            heads["neat_sdf"] = init_implicit_net(gen, cfg.implicit)
+    model = NeatModel(implicit, rendering, density=LaplaceDensity(cfg.density_beta_init), **heads)
     return model.to(device)
 
 
 def draw_forward_noise(gen: torch.Generator, n_rays: int, cfg: NeatConfig, device="cuda"):
     """Every random array a training-mode ``neat_forward`` consumes: per-ray
-    eik_uniform, strat, final_u, eik_z_idx; ray-shared z_extra_idx."""
+    eik_uniform, strat, eik_z_idx, and for the error-bounded sampler
+    final_u and the ray-shared z_extra_idx."""
     s = cfg.sampler
     bs = cfg.scene_bounding_sphere
     kw = dict(generator=gen, device=device)
-    noise = {
-        "eik_uniform": torch.rand((n_rays, 3), **kw) * (2 * bs) - bs,
-        "strat": torch.rand((n_rays, s.n_samples_eval), **kw),
-        "final_u": torch.rand((n_rays, s.n_samples), **kw),
-        "eik_z_idx": torch.randint(0, total_final_samples(s), (n_rays, 1), **kw),
-    }
+    noise = {"eik_uniform": torch.rand((n_rays, 3), **kw) * (2 * bs) - bs}
+    if cfg.sampler_kind == "uniform":
+        noise["strat"] = torch.rand((n_rays, s.n_samples), **kw)
+        noise["eik_z_idx"] = torch.randint(0, s.n_samples, (n_rays, 1), **kw)
+        return noise
+    noise["strat"] = torch.rand((n_rays, s.n_samples_eval), **kw)
+    noise["final_u"] = torch.rand((n_rays, s.n_samples), **kw)
+    noise["eik_z_idx"] = torch.randint(0, total_final_samples(s), (n_rays, 1), **kw)
     if s.n_samples_extra > 0:
         perm = torch.randperm(total_proposal_samples(s), **kw)
         noise["z_extra_idx"] = perm[: s.n_samples_extra]
@@ -249,6 +249,15 @@ def _masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _sample_z(ray_dirs, cam_loc, model, cfg: NeatConfig, training, noise):
+    """(z_vals, z_eik): the ray's samples and, in training, the one each
+    ray's near-surface eikonal point is taken at."""
+    if cfg.sampler_kind == "uniform":  # neat_uni: no proposal evaluations
+        ucfg = UniformSamplerConfig(
+            scene_bounding_sphere=cfg.scene_bounding_sphere, near=cfg.sampler.near, n_samples=cfg.sampler.n_samples
+        )
+        z = uniform_z_vals(ray_dirs, cam_loc, ucfg, training, t_rand=noise["strat"] if training else None)
+        z_eik = torch.gather(z, -1, noise["eik_z_idx"]) if training else None
+        return z.detach(), None if z_eik is None else z_eik.detach()
     cd = _DTYPES[cfg.sampler_compute_dtype]
     if cfg.use_pallas_sampler:
         from ..ops.fused_sdf import fused_sdf_eval
@@ -299,7 +308,9 @@ def neat_forward(
 
     fdtype = _DTYPES[cfg.field_compute_dtype]
     fdtype = None if fdtype == torch.float32 else fdtype
-    if cfg.use_pallas_field:
+    # the fused field kernels take the neat network only, as in the JAX package
+    lines3d_flat = None
+    if cfg.use_pallas_field and cfg.model_variant == "neat":
         from ..ops.fused_field import fused_field_eval, supports_field_math
         from ..ops.fused_field_stash import fused_field_eval_stash
 
@@ -323,10 +334,11 @@ def neat_forward(
             model.rendering, points_flat, grads, dirs_flat, feats, cfg.rendering,
             compute_dtype=fdtype,
         )
-        lines3d_flat = attraction_forward(
-            model.attraction, points_flat, grads, dirs_flat, feats, cfg.attraction,
-            compute_dtype=fdtype,
-        )
+        if cfg.model_variant == "neat" and not cfg.attraction_at_surface:
+            lines3d_flat = attraction_forward(
+                model.attraction, points_flat, grads, dirs_flat, feats, cfg.attraction,
+                compute_dtype=fdtype,
+            )
     rgb = rgb_flat.reshape(n_rays, n_samples, 3)
 
     density = laplace_density(
@@ -352,15 +364,33 @@ def neat_forward(
         normals = normals / torch.linalg.norm(normals, dim=-1, keepdim=True)
         out["normal_map"] = torch.sum(weights[..., None] * normals.reshape(n_rays, n_samples, 3), dim=1)
 
+    if cfg.model_variant != "neat":  # vanilla VolSDF: the eikonal points and done
+        out["sdf"] = sdf.reshape(n_rays, n_samples).detach()
+        if training:
+            out["grad_theta"] = _eikonal_gradients(model, cfg, cam_loc, ray_dirs, z_eik, noise["eik_uniform"])
+        return out
+
     # surface point and a second field evaluation there
     points3d = torch.sum(weights[..., None] * points, dim=1)
-    points3d_sdf, _, points_gradients = implicit_sdf_feat_grad(
+    points3d_sdf, points3d_feats, points_gradients = implicit_sdf_feat_grad(
         model.implicit, points3d, cfg.implicit
     )
 
-    lines3d = lines3d_flat.reshape(n_rays, n_samples, 2, 3)
-    w_lines = weights.detach() if cfg.detach_line_weights else weights
-    lines3d = torch.sum(w_lines[..., None, None] * lines3d, dim=1)  # (R, 2, 3)
+    if cfg.attraction_at_surface:
+        # the wfr family: one attraction evaluation at the detached surface
+        # point with its detached implicit outputs
+        lines3d = attraction_forward(
+            model.attraction, points3d.detach(), points_gradients.detach(), ray_dirs.detach(),
+            points3d_feats.detach(), cfg.attraction, compute_dtype=fdtype,
+        ).reshape(n_rays, 2, 3)
+    elif cfg.attraction_aggregation == "endpoint_render":
+        lines3d, out["score"] = _endpoint_render(
+            model, cfg, lines3d_flat.reshape(n_rays, n_samples, 2, 3), cam_loc
+        )
+    else:
+        lines3d = lines3d_flat.reshape(n_rays, n_samples, 2, 3)
+        w_lines = weights.detach() if cfg.detach_line_weights else weights
+        lines3d = torch.sum(w_lines[..., None, None] * lines3d, dim=1)  # (R, 2, 3)
 
     w2c = torch.linalg.inv(pose)
     rot, trans = w2c[:3, :3], w2c[:3, 3]
@@ -385,6 +415,18 @@ def neat_forward(
         / torch.clamp(torch.linalg.norm(e1 - e2, dim=-1), min=1e-6)
     ).detach()
 
+    if cfg.eval_attraction_at_l3d and not training:
+        # the wfr / simple eval branch: the attraction again at l3d with
+        # fresh detached implicit outputs; 'sdf' follows, lines2d_calib
+        # keeps the surface point's segments
+        l3d_stop = l3d.detach()
+        points3d_sdf, l3d_feats, l3d_grads = implicit_sdf_feat_grad(model.implicit, l3d_stop, cfg.implicit)
+        lines3d = attraction_forward(
+            model.attraction, l3d_stop, l3d_grads.detach(), ray_dirs.detach(), l3d_feats.detach(),
+            cfg.attraction, compute_dtype=fdtype,
+        ).reshape(n_rays, 2, 3)
+        lines2d = project2d(k3, rot, trans, lines3d)
+
     out.update(
         {
             "l3d": l3d,
@@ -403,7 +445,10 @@ def neat_forward(
     if training:
         endpoints = lines3d.detach().reshape(-1, 3)
         if cfg.dbscan_enabled:
-            proposals, prop_mask = dbscan_cluster_means(endpoints, eps=0.01, min_samples=2)
+            cluster_input = endpoints
+            if cfg.dbscan_include_global:  # rend_c: the global junctions join the cloud
+                cluster_input = torch.cat([endpoints, junctions3d_global.detach()], dim=0)
+            proposals, prop_mask = dbscan_cluster_means(cluster_input, eps=0.01, min_samples=2)
         elif cfg.use_l3d:
             med = torch.clamp(
                 _masked_median(l3d_score, torch.ones_like(l3d_score, dtype=torch.bool)), min=0.01
@@ -443,16 +488,40 @@ def neat_forward(
         out["j2d_global"] = project2d(k3, rot, trans, junctions3d_global)
         out["j2d_global_calib"] = project2d(eye3, rot, trans, junctions3d_global)
         out["grad_theta"] = _eikonal_gradients(
-            model, cfg, cam_loc, ray_dirs, z_eik, noise["eik_uniform"]
+            model, cfg, cam_loc, ray_dirs, z_eik, noise["eik_uniform"],
+            junctions3d_global.detach() if cfg.junction_eikonal else None,
         )
     return out
 
 
-def _eikonal_gradients(model, cfg: NeatConfig, cam_loc, ray_dirs, z_eik, eik_uniform):
-    """Raw SDF gradients at uniform + near-surface points."""
+def _endpoint_render(model, cfg: NeatConfig, lines3d, cam_loc):
+    """The along-ray family: each endpoint track (R, S, 3) sorted by its
+    camera distance and volume-rendered with weights from its own SDF
+    evaluation (input detached; ``neat_sdf`` with ``endpoint_sdf_separate``).
+    -> (lines3d (R, 2, 3), score (R,): the mean of the tracks' peak weights).
+    The sort is stable, as jnp.argsort's: tied distances keep their order."""
+    n_rays, n_samples = lines3d.shape[:2]
+    sdf_net = model.neat_sdf if cfg.endpoint_sdf_separate else model.implicit
+    ek = lines3d.transpose(1, 2).reshape(2 * n_rays, n_samples, 3)
+    sdf_e = implicit_sdf(sdf_net, ek.reshape(-1, 3).detach(), cfg.implicit)[..., 0].reshape(2 * n_rays, n_samples)
+    cam2 = torch.repeat_interleave(cam_loc, 2, dim=0)
+    z_e = torch.linalg.norm(ek - cam2[:, None, :], dim=-1).detach()
+    order = torch.argsort(z_e, dim=-1, stable=True)
+    w_e = volume_rendering_weights(
+        torch.gather(z_e, -1, order), torch.gather(sdf_e, -1, order), model.density, beta_min=cfg.density_beta_min
+    )
+    ek_s = torch.gather(ek, 1, order[..., None].expand(-1, -1, 3))
+    lines3d = torch.sum(w_e[..., None] * ek_s, dim=1).reshape(n_rays, 2, 3)
+    score = torch.mean(torch.amax(w_e, dim=-1).reshape(n_rays, 2), dim=-1)
+    return lines3d, score
+
+
+def _eikonal_gradients(model, cfg: NeatConfig, cam_loc, ray_dirs, z_eik, eik_uniform, extra_points=None):
+    """Raw SDF gradients at uniform + near-surface points, and the detached
+    global junctions with ``junction_eikonal``."""
     eik_near = (cam_loc[:, None, :] + z_eik[..., None] * ray_dirs[:, None, :]).reshape(-1, 3)
-    pts = torch.cat([eik_uniform, eik_near], dim=0)
-    return implicit_gradient(model.implicit, pts, cfg.implicit)
+    pts = [eik_uniform, eik_near] + ([] if extra_points is None else [extra_points])
+    return implicit_gradient(model.implicit, torch.cat(pts, dim=0), cfg.implicit)
 
 
 def render_rgb(model: NeatModel, inputs: Dict[str, torch.Tensor], cfg: NeatConfig) -> torch.Tensor:

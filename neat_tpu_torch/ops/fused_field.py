@@ -34,7 +34,7 @@ the 391 packed pairs of hi/lo panels a tile reads and the CPU model). One
 TF32 product puts the spatial gradient 8e-3 of its scale off f64 (plain
 f32: 7e-6); three, each pair's sum taken by the tensor core from zero and
 added in f32, are within 1.5x plain f32's error on every output
-(tests/test_torch_tf32.py prints them). The post-activations the sweep
+(tests/test_torch_tf32_field_design.py prints them). The post-activations the sweep
 needs go to a per-block scratch straight from the accumulator fragments.
 The recompute pair under autograd (``_FusedField``) keeps the scalar
 forward in f32: its backward re-runs the scalar tile and differentiates

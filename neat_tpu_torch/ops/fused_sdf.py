@@ -44,9 +44,8 @@ CPU model of the products in ``tf32.py``). One TF32 product would not hold
 the 1e-3 tolerance: through ``fused_sdf_plain`` it puts the sdf 7.2e-4 of
 its scale off f64, where plain f32 is 4.9e-7. Three products, each pair of
 k16 summed by the tensor core, the pairs' sums added in f32 and the
-result moved one ulp away from zero (the expected loss of the tensor
-core's truncations), are 2.8e-7 off (tests/test_torch_tf32.py prints
-them; one accumulator for a whole layer, which rounds toward zero on every
+expected loss of the tensor core's truncations given back (``tf32.give_back``),
+are 2.6e-7 off (tests/test_torch_tf32_k1_design.py prints them; one accumulator for a whole layer, which rounds toward zero on every
 wgmma, would be 5.8e-6). The weights are split and packed once per weight
 set (``tf32.TensorCache``; ``fused_sdf_eval`` keeps the resolved weights of
 a net while its parameters stand). The scalar kernel of the first port (one

@@ -14,9 +14,19 @@ would show; the last run runs under ``torch.use_deterministic_algorithms``
 With ``--warm``, one small matmul and its backward run before the first
 run.
 
+``--nodes`` runs the first step twice instead, with a hook on every node
+of the loss's autograd graph (the eikonal double backward's nodes
+included): it names the first node, in the order the backward runs them,
+whose incoming gradients are the same in both runs and whose outgoing ones
+are not, with the shapes, strides and addresses (mod 1024) of the tensors
+it saved in each run (or, where the backward ran the nodes in another
+order, the nodes there with their sequence numbers, which order the
+engine's ready queue); and the process-wide precision and algorithm flags
+before and after each run.
+
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 -m neat_tpu_torch.tools.repeatability [--steps 3] [--warm]
+    python3 -m neat_tpu_torch.tools.repeatability [--steps 3] [--warm] [--nodes]
 """
 
 from __future__ import annotations
@@ -70,6 +80,104 @@ def _recorder(record):
     return lambda: [setattr(m, n, f) for m, n, f in undo]
 
 
+def flags() -> dict:
+    """The process-wide switches that choose a CUDA op's precision or
+    algorithm."""
+    b = torch.backends
+    return {
+        "matmul.allow_tf32": b.cuda.matmul.allow_tf32,
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+        "fp16_reduced_reduction": b.cuda.matmul.allow_fp16_reduced_precision_reduction,
+        "bf16_reduced_reduction": b.cuda.matmul.allow_bf16_reduced_precision_reduction,
+        "blas_library": str(b.cuda.preferred_blas_library()),
+        "linalg_library": str(b.cuda.preferred_linalg_library()),
+        "cudnn.allow_tf32": b.cudnn.allow_tf32,
+        "cudnn.benchmark": b.cudnn.benchmark,
+        "deterministic": torch.are_deterministic_algorithms_enabled(),
+    }
+
+
+def _saved(fn) -> str:
+    """The tensors a node saved: shape, strides, address mod 1024."""
+    out = []
+    for name in dir(fn):
+        if name.startswith("_saved_"):
+            try:
+                x = getattr(fn, name)
+            except RuntimeError:
+                continue
+            if torch.is_tensor(x):
+                out.append(f"{name[7:]} {tuple(x.shape)}/{x.stride()}@{x.data_ptr() % 1024}")
+    return ", ".join(out)
+
+
+def hook_graph(loss, record) -> None:
+    """A hook on every node of ``loss``'s graph appending (node name, what it
+    saved, its outgoing gradients, its incoming ones) as the backward runs."""
+    seen, todo = set(), [loss.grad_fn]
+    copy = lambda gs: [None if g is None else g.detach().clone() for g in gs]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        desc = _saved(fn)
+        name = f"{fn.name()}#{fn._sequence_nr()}"  # the number the engine orders ready nodes by
+        fn.register_hook(lambda gi, go, name=name, desc=desc: record.append((name, desc, copy(gi), copy(go))))
+        todo.extend(f for f, _ in fn.next_functions)
+
+
+def _same(xs, ys) -> bool:
+    return all((x is None and y is None) or (x is not None and y is not None and torch.equal(x, y))
+               for x, y in zip(xs, ys))
+
+
+def first_node(a, b) -> str:
+    """The first node whose incoming gradients agree and outgoing do not."""
+    kind = lambda r: r[0].split("#")[0]
+    na, nb = [r[0] for r in a], [r[0] for r in b]
+    if [kind(r) for r in a] != [kind(r) for r in b]:
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if kind(x) != kind(y)), min(len(na), len(nb)))
+        return (f"the two graphs differ: {len(na)} and {len(nb)} nodes, from node {i}: "
+                f"{na[max(i - 2, 0):i + 4]} and {nb[max(i - 2, 0):i + 4]}")
+    for i, ((name, da, gia, goa), (_, db, gib, gob)) in enumerate(zip(a, b)):
+        if _same(goa, gob) and not _same(gia, gib):
+            diffs = [f"{int((x != y).sum())} of {x.numel()} entries, at most {float((x.double() - y.double()).abs().max()):.3g}"
+                     for x, y in zip(gia, gib) if x is not None and y is not None and not torch.equal(x, y)]
+            return (f"node {i} of {len(a)}, {name}: outgoing {diffs}; incoming shapes "
+                    f"{[None if g is None else tuple(g.shape) for g in goa]}; saved in run 1: {da}; in run 2: {db}")
+    return "none"
+
+
+def nodes(cfg, scene) -> None:
+    """``--nodes``: the first step, twice, every node of its graph hooked."""
+    import neat_tpu_torch.train.step as ST
+    from neat_tpu_torch.utils.benchscene import bench_step
+
+    runs = []
+    for _ in range(2):
+        before = flags()
+        record = []
+        loss_fn = ST.neat_loss
+
+        def hooked(out, gt, lcfg):
+            losses = loss_fn(out, gt, lcfg)
+            hook_graph(losses["loss"], record)
+            return losses
+
+        ST.neat_loss = hooked
+        try:
+            step, state = bench_step(cfg, device="cuda")
+            step(state, scene, torch.Generator(device="cuda").manual_seed(0))
+        finally:
+            ST.neat_loss = loss_fn
+        torch.cuda.synchronize()
+        print(f"flags before run {len(runs) + 1}: {before}; after: {flags()}", flush=True)
+        runs.append(record)
+    print(f"nodes: {len(runs[0])}; the first node whose outgoing gradients differ with its incoming ones equal: "
+          f"{first_node(*runs)}", flush=True)
+
+
 def _first_difference(a, b) -> str:
     step = -1
     for (ka, da), (kb, db) in zip(a, b):
@@ -91,6 +199,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warm", action="store_true", help="one small matmul and its backward before the first run")
+    ap.add_argument("--nodes", action="store_true", help="hook every node of the first step's graph, two runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repeatability: no CUDA device")
@@ -104,6 +213,9 @@ def main() -> int:
     if args.warm:
         a = torch.randn(64, 32, device="cuda", requires_grad=True)
         (a @ torch.randn(32, 16, device="cuda")).sum().backward()
+    if args.nodes:
+        nodes(cfg, scene)
+        return 0
 
     def run(fill=None, deterministic=False):
         if fill is not None:  # the allocator's free memory, written with fill

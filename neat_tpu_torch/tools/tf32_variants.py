@@ -24,9 +24,19 @@ The variants:
   by a select (``add ? sum + part : part``) where the tree starts it from
   zero. ptxas moves the running sum between register blocks around every
   quarter and spills (the same values; a zero's sign can differ).
-- ``no_nudge``: the product not moved one ulp away from zero at its end:
-  the truncations' loss stays in it (a mean error against f64 of 2.4
-  times plain f32's, on the card).
+- ``no_nudge``: the product not moved toward its truncations' loss at
+  its end: the loss stays in it (the sdf's mean error against f64 -1.5e-7
+  of its largest value, plain f32's -6.3e-8, on the card).
+- ``whole_ulp``: every entry one ulp away from zero at the end (the
+  first design: mean error +8.5e-8, root mean square 1.03e-7).
+- ``nudge2``: two ulps away from zero at the product's end.
+- ``frac12``, ``frac34``: the ulp given back to a half or three quarters
+  of the entries, chosen by the running sum's low bits (the tree gives it
+  to five eighths).
+- ``pair_nudge``: each pair's quarter sum moved one ulp away from zero
+  before it joins the running sum, nothing at the end.
+- ``four_terms``: the fourth product A_lo B_lo too (two more wgmmas a
+  pair), the small terms first.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -64,9 +74,19 @@ struct Turns {
 _ZERO = ("  if (!accumulate) {\n#pragma unroll\n    for (int j = 0; j < 32; ++j)\n#pragma unroll\n"
          "      for (int i = 0; i < 4; ++i) sum[j][i] = 0.f;\n  }\n")
 _SLOT = "    const uint32_t slot = mma_tile::smem_u32(ring.wait(q));\n"
-_NUDGE = "    for (int i = 0; i < 4; ++i) sum[j][i] = ulp_away(sum[j][i]);"
+_NUDGE = "    for (int i = 0; i < 4; ++i) sum[j][i] = give_back(sum[j][i]);"
 _SIG = "float (&sum)[32][4], const float* A, Ring& ring, bool feeder,"
 _PRIME = "  if (feeder) ring.prime();\n"
+_LO0 = "      wgmma_m64n64k8(part, lo[0], dh, 0);\n"
+_LO1 = "        wgmma_m64n64k8(part, lo[1], dh + 2, 1);\n"
+
+
+def _dither(cond: str) -> str:
+    """The end-of-product nudge on the entries whose low bits b meet cond."""
+    return ("    for (int i = 0; i < 4; ++i) {\n      const int b = __float_as_int(sum[j][i]);\n"
+            f"      if ({cond}) sum[j][i] = ulp_away(sum[j][i]);\n    }}")
+
+
 # {file: ((old, new), ...)} a variant's text edits, each of every occurrence
 VARIANTS = {
     "tree": {},
@@ -96,6 +116,18 @@ VARIANTS = {
         ),
     },
     "no_nudge": {"tf32_tile.cuh": ((_NUDGE, "    for (int i = 0; i < 4; ++i) {}"),)},
+    "whole_ulp": {"tf32_tile.cuh": ((_NUDGE, "    for (int i = 0; i < 4; ++i) sum[j][i] = ulp_away(sum[j][i]);"),)},
+    "nudge2": {"tf32_tile.cuh": ((_NUDGE, "    for (int i = 0; i < 4; ++i) sum[j][i] = ulp_away(ulp_away(sum[j][i]));"),)},
+    "frac12": {"tf32_tile.cuh": ((_NUDGE, _dither("(b & 1) == 0")),)},
+    "frac34": {"tf32_tile.cuh": ((_NUDGE, _dither("(b & 3) != 0")),)},
+    "pair_nudge": {"tf32_tile.cuh": (
+        (_NUDGE, "    for (int i = 0; i < 4; ++i) {}"),
+        ("sum[8 * c + j][i] += part[j][i];", "sum[8 * c + j][i] += ulp_away(part[j][i]);"),
+    )},
+    "four_terms": {"tf32_tile.cuh": (
+        (_LO0, _LO0 + "      wgmma_m64n64k8(part, lo[0], dl, 1);\n"),
+        (_LO1, _LO1 + "        wgmma_m64n64k8(part, lo[1], dl + 2, 1);\n"),
+    )},
 }
 SAME_BITS = ("tree", "turns")
 

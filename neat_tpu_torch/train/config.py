@@ -5,9 +5,8 @@ The confs name their model, loss and data set by the reference's class
 paths. This module parses the conf dialect with its own parser (pyhocon is
 not needed) and translates the class paths and block names into this
 package's config dataclasses, so every conf under ``confs/`` resolves to
-the same values as in the JAX package. A variant flag that this package
-does not run is kept in ``NeatConfig`` as the JAX package keeps it;
-``model.neat.check_ported`` raises for it when the model is built.
+the same values as in the JAX package, every reference model class
+(the ablation variants) to the flags the model runs.
 
 Supported dialect (everything the reference confs use):
   nested blocks ``name { ... }`` (brace may follow on the next line),

@@ -239,6 +239,10 @@ class TrainRunner:
 
     @torch.no_grad()
     def dump_junctions(self, epoch: int) -> None:
+        """The decoded global junctions as junctions/{epoch}.npy; nothing for
+        a model without a junction head (the vanilla VolSDF network)."""
+        if self.state.model.junctions is None:
+            return
         pts = global_junctions_forward(self.state.model.junctions, self.cfg.model.junctions)
         np.save(osp.join(self.junctions_dir, f"{epoch}.npy"), pts.cpu().numpy())
 

@@ -92,12 +92,14 @@ def scene_to_device(scene, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(getattr(scene, k)).to(device) for k in keys}
 
 
-def sample_batch(gen: torch.Generator, scene: Dict[str, torch.Tensor], n_rays: int, img_width: int):
-    """One random view and ``n_rays`` support pixels drawn with replacement;
-    the ground truth carries their depth cues where the scene has them."""
+def sample_batch(gen: torch.Generator, scene: Dict[str, torch.Tensor], n_rays: int, img_width: int,
+                 view: Optional[int] = None):
+    """One random view (or ``view``) and ``n_rays`` support pixels drawn
+    with replacement; the ground truth carries their depth cues where the
+    scene has them."""
     dev = scene["rgb"].device
     n_views = scene["rgb"].shape[0]
-    v = int(torch.randint(0, n_views, (), generator=gen, device=dev))
+    v = int(torch.randint(0, n_views, (), generator=gen, device=dev)) if view is None else view
     count = scene["support_count"][v]
     draw = torch.floor(torch.rand((n_rays,), generator=gen, device=dev) * count).long()
     draw = torch.minimum(draw, count.long() - 1)
@@ -118,6 +120,56 @@ def sample_batch(gen: torch.Generator, scene: Dict[str, torch.Tensor], n_rays: i
     return inputs, ground_truth
 
 
+def sample_uniform_batch(gen: torch.Generator, scene: Dict[str, torch.Tensor], n_rays: int, img_width: int,
+                         view: int):
+    """``n_rays`` pixels of ``view`` drawn uniformly with replacement from
+    the whole image: the dual-batch variant's RGB pass. Its junctions are
+    all masked out."""
+    dev = scene["rgb"].device
+    hw = scene["rgb"].shape[1]
+    pix = torch.clamp(torch.floor(torch.rand((n_rays,), generator=gen, device=dev) * hw).long(), max=hw - 1)
+    uv = torch.stack([(pix % img_width).float(), (pix // img_width).float()], dim=-1)
+    inputs = {
+        "uv": uv,
+        "uv_proj": uv,
+        "intrinsics": scene["intrinsics"][view],
+        "pose": scene["pose"][view],
+        "verts2d": scene["verts2d"][view],
+        "verts_mask": torch.zeros_like(scene["verts_mask"][view]),
+    }
+    return inputs, {"rgb": scene["rgb"][view, pix]}
+
+
+def _draw_batch(gen, scene, n_rays: int, img_width: int, dual: bool):
+    """The step's batch: a view's support pixels and, for the dual-batch
+    variant, uniform pixels of the same view, carried in the ground truth
+    as ``_uniform_inputs`` and ``_uniform_rgb`` (the JAX step's layout)."""
+    n_views = scene["rgb"].shape[0]
+    v = int(torch.randint(0, n_views, (), generator=gen, device=scene["rgb"].device))
+    inputs, ground_truth = sample_batch(gen, scene, n_rays, img_width, view=v)
+    if dual:
+        uni_inputs, uni_gt = sample_uniform_batch(gen, scene, n_rays, img_width, v)
+        ground_truth = dict(ground_truth, _uniform_inputs=uni_inputs, _uniform_rgb=uni_gt["rgb"])
+    return inputs, ground_truth
+
+
+def forward_and_loss(model, inputs, ground_truth, model_cfg: NeatConfig, loss_cfg: LossConfig, gen, noise):
+    """(outputs, losses). The dual-batch variant runs two forwards (the
+    JAX step's ``loss_fn``): rgb and grad_theta from the uniform pass on
+    ``ground_truth['_uniform_inputs']``, every other output from the
+    support pass; ``noise`` is then the pair (uniform pass, support pass)."""
+    if not model_cfg.dual_batch:
+        out = neat_forward(model, inputs, model_cfg, gen, training=True, noise=noise)
+        return out, neat_loss(out, ground_truth, loss_cfg)
+    noise0, noise1 = (None, None) if noise is None else noise
+    out0 = neat_forward(model, ground_truth["_uniform_inputs"], model_cfg, gen, training=True, noise=noise0)
+    out1 = neat_forward(model, inputs, model_cfg, gen, training=True, noise=noise1)
+    out = dict(out1, rgb_values=out0["rgb_values"], grad_theta=out0["grad_theta"])
+    gt = {k: v for k, v in ground_truth.items() if k not in ("_uniform_inputs", "_uniform_rgb")}
+    gt["rgb"] = ground_truth["_uniform_rgb"]
+    return out, neat_loss(out, gt, loss_cfg)
+
+
 def make_train_step(
     model_cfg: NeatConfig,
     loss_cfg: LossConfig,
@@ -130,8 +182,9 @@ def make_train_step(
     """step(state, scene, gen, batch=None, noise=None) -> (state, metrics).
 
     ``batch`` = (inputs, ground_truth) and ``noise`` (draw_forward_noise's
-    dict) may be injected, as the parity tests do with the JAX step's own
-    draws; otherwise both are drawn from ``gen``. With NaN debugging on, a
+    dict; for the dual-batch variant a pair of them) may be injected, as
+    the parity tests do with the JAX step's own draws; otherwise both are
+    drawn from ``gen``. With NaN debugging on, a
     non-finite loss or gradient raises ``FloatingPointError`` before the
     parameters move (one host sync a step)."""
 
@@ -143,11 +196,10 @@ def make_train_step(
         noise: Optional[Dict[str, torch.Tensor]] = None,
     ):
         if batch is None:
-            inputs, ground_truth = sample_batch(gen, scene, n_rays, img_width)
+            inputs, ground_truth = _draw_batch(gen, scene, n_rays, img_width, model_cfg.dual_batch)
         else:
             inputs, ground_truth = batch
-        out = neat_forward(state.model, inputs, model_cfg, gen, training=True, noise=noise)
-        losses = neat_loss(out, ground_truth, loss_cfg)
+        out, losses = forward_and_loss(state.model, inputs, ground_truth, model_cfg, loss_cfg, gen, noise)
         params = list(state.model.parameters())
         grads = torch.autograd.grad(losses["loss"], params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
@@ -157,7 +209,8 @@ def make_train_step(
         adam_update(state, grads, lr_schedule(lr, decay_rate, decay_steps, state.step))
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["psnr"] = psnr_fn(out["rgb_values"].detach(), ground_truth["rgb"])
+        rgb_gt = ground_truth["_uniform_rgb"] if model_cfg.dual_batch else ground_truth["rgb"]
+        metrics["psnr"] = psnr_fn(out["rgb_values"].detach(), rgb_gt)
         return state, metrics
 
     return step

@@ -33,6 +33,19 @@ NARROW = dict(
 )
 
 
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread while inside: small CPU ops, which the test
+    workers' threads would otherwise fight over (a case that takes 10 s
+    alone took 100-1000 s beside five other workers on all their threads)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def configs(spec=NARROW, **flags):
     """(jax NeatConfig, torch NeatConfig) from the same kwargs."""
 

@@ -117,10 +117,12 @@ def test_every_conf_passes_check_ported(conf):
 
 def test_dbscan_with_global_junctions_still_raises():
     """rend_c (the global junctions joined to the endpoints before DBSCAN)
-    parses as in JAX; the model build raises, naming the variants item."""
+    parses as in JAX; once a raise naming the variants item, the model now
+    builds with its junction head (tests/test_torch_variants.py trains it
+    against JAX)."""
     conf = tconf.parse_hocon(_text("confs/dtu.conf"))
     conf["train"]["model_class"] = "model.networks.neat_wfr_rend_c.VolSDFNetwork"
     cfg = tconf.build_experiment_config(conf)
-    assert cfg.model.dbscan_include_global
-    with pytest.raises(NotImplementedError, match=r"dbscan_include_global.*ROADMAP.md §1, variants"):
-        check_ported(cfg.model)
+    assert cfg.model.dbscan_include_global and cfg.model.dbscan_enabled
+    check_ported(cfg.model)
+    assert init_neat(cfg.model, seed=0, device="cpu").junctions.latents.shape[0] == 1024

@@ -27,7 +27,14 @@ import torch
 import neat_tpu.model.neat as jneat
 import neat_tpu.wireframe.distill as jd
 import neat_tpu_torch.wireframe.distill as td
-from _torch_helpers import configs, disk_scenes, port_model, spread_attraction
+from _torch_helpers import configs, disk_scenes, one_thread, port_model, spread_attraction
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 F64_TOL = 1e-9
 RES = (48, 48)

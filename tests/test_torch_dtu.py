@@ -52,8 +52,15 @@ import neat_tpu_torch.model.loss as tloss
 import neat_tpu_torch.model.neat as tneat
 import neat_tpu_torch.train.config as tconf
 import neat_tpu_torch.train.step as tstep
-from _torch_helpers import n, port_model, small_scene, t, to_numpy
+from _torch_helpers import n, one_thread, port_model, small_scene, t, to_numpy
 from neat_tpu_torch.interop import params_from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 EPS = 0.01

@@ -81,10 +81,12 @@ def test_masked_median_and_unported_variants():
     ref = jneat._masked_median(jnp.asarray(n(vals)), jnp.asarray(n(mask)))
     assert float(tneat._masked_median(vals, mask)) == float(ref) == 2.0  # lower median
     assert float(tneat._masked_median(vals, torch.zeros(6, dtype=torch.bool))) == 10.0
-    cfg = dataclasses.replace(tneat.NeatConfig.for_abc(), dual_batch=True)
-    try:
-        tneat.check_ported(cfg)
-    except NotImplementedError as e:
-        assert "ROADMAP.md" in str(e)
-    else:
-        raise AssertionError("an unported variant flag must raise")
+    # every variant flag of the JAX config is ported; a value neither package knows raises
+    tneat.check_ported(dataclasses.replace(tneat.NeatConfig.for_abc(), dual_batch=True))
+    for name, value in (("sampler_kind", "stratified"), ("model_variant", "nerf")):
+        try:
+            tneat.check_ported(dataclasses.replace(tneat.NeatConfig.for_abc(), **{name: value}))
+        except ValueError as e:
+            assert name in str(e)
+        else:
+            raise AssertionError(f"an unknown {name} must raise")

@@ -40,6 +40,14 @@ from neat_tpu.train.runner import TrainRunner as JaxTrainRunner
 from neat_tpu_torch.interop import params_from_jax
 from neat_tpu_torch.train.checkpoint import host_state, load_checkpoint
 from neat_tpu_torch.train.config import load_experiment_config
+from _torch_helpers import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 PARAM_ATOL = 1e-4
 

@@ -16,8 +16,8 @@ Images: palette PNGs (1-, 2-, 4- and 8-bit indices, with and without
 transparency) and uncompressed 24- and 32-bit BMPs (bottom-up and
 top-down rows, the three info headers) as JAX's imageio reads them. An
 .npy image raises in both packages; gray with alpha raises in the port,
-where JAX returns 2 channels its loaders cannot pack; JPEG raises in the
-port, naming its ROADMAP item.
+where JAX returns 2 channels its loaders cannot pack; a baseline JPEG reads
+as JAX's, a progressive one raises in the port, naming its ROADMAP item.
 """
 
 import dataclasses
@@ -285,8 +285,13 @@ def test_npy_gray_alpha_and_jpeg_raise(tmp_path):
     with pytest.raises(ValueError, match="gray with alpha"):
         tdata._load_rgb(gray_alpha)
 
+    # a baseline JPEG reads as JAX's; a progressive one raises, naming its ROADMAP item
+    img = rs.randint(0, 256, (8, 8, 3)).astype(np.uint8)
     jpeg = str(tmp_path / "image_0001.jpg")
-    PIL.Image.fromarray(rs.randint(0, 256, (8, 8, 3)).astype(np.uint8)).save(jpeg)
-    assert jdata._load_rgb(jpeg).shape == (8, 8, 3)
+    PIL.Image.fromarray(img).save(jpeg)
+    assert _bits_equal(tdata._load_rgb(jpeg), jdata._load_rgb(jpeg))
+    progressive = str(tmp_path / "image_0002.jpg")
+    PIL.Image.fromarray(img).save(progressive, progressive=True)
+    assert jdata._load_rgb(progressive).shape == (8, 8, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1, data"):
-        tdata._load_rgb(jpeg)
+        tdata._load_rgb(progressive)
