@@ -21,9 +21,10 @@ loaded by each package's own loader at distance_threshold 1.
   in f32); the f64 tests above hold it at 1e-9. The untrained field's
   scores (about 0.5) are far above the 0.01 score gate, which
   wireframe_recon does not expose, so its lines come out empty in both
-  packages here; the f64 tests hold those stages with content. Each
-  package reads the other's -neat.pkl, and eval_abc gives the same numbers
-  on both.
+  packages here; the f64 tests hold those stages with content, and
+  tests/test_torch_finalize_trained.py holds the CLI's lines with content
+  on trained weights. Each package reads the other's -neat.pkl, and
+  eval_abc gives the same numbers on both.
 - make_hash_sha256 on the same knob dicts: the same string.
 """
 
